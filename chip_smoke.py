@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA package of COSMOS on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--out PATH]
+
+Run from a checkout of the repository; it needs one CUDA card, ``nvcc``
+(on PATH or under /usr/local/cuda) and nothing else.  Phases, each of
+which fails the run on any error:
+
+  1. device  — the card's name and power limit; build every kernel
+     under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+  2. parity  — every kernel against its plain PyTorch version on the
+     card, at tile 128 and at the 512x512 frame, over several knob
+     points (tolerance max|d| / max(1, max|ref|): 1e-5, Hessian 1e-4);
+  3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
+     and at 64x64 against the same code on the CPU;
+  4. measured DSE — the main path: ``wami_cuda_session`` in record mode
+     (characterize, plan, map, with the four kernels timed on the card)
+     and ``exhaustive_dse`` over the same oracle, launch counts read
+     around exactly that run; the recording is replayed and must give
+     the same front;
+  5. times   — each kernel, its plain version and (where one exists) one
+     PyTorch library call on the same inputs: device time per call by
+     CUDA events with the host's issue time kept out (as the oracle
+     times), the per-call time a Python caller sees, and the least time
+     the card could take (bytes over 3.35 TB/s, float32 flops over
+     67 TFLOP/s: an H100 SXM's published peaks at its 700 W limit).
+
+The line before the last lists every kernel as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+package beside it, it exits 2 and prints no result.  ``--out`` also
+writes every number of the run to a JSON file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+# an H100 SXM's published peaks, at its 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+TILE, FRAME = 128, 512
+# calls per timed reading: short enough that a plain version's kernels
+# (up to ~10 a call) fit the device's queue of pending launches
+TIME_LAUNCHES = 20
+TIME_REPS = 10                   # readings; the best is kept
+
+
+def _require(ok, what) -> None:
+    """A check of the run's results (kept under ``python -O``)."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def _close_err(got, want):
+    """(max|d|, max|d| / max(1, max|want|)) of two tensors."""
+    d = float((got.double() - want.double()).abs().max())
+    return d, d / max(1.0, float(want.double().abs().max()))
+
+
+def kernel_table():
+    """Per kernel: its wrapper, plain version, launch counter, inputs,
+    knob points, tolerance, bytes and flops per pixel, library call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import wami_gradient as G
+    from repro_torch.kernels import wami_grayscale as Y
+    from repro_torch.kernels import wami_steep as S
+
+    def inputs(n, dev, seed):
+        rng = np.random.default_rng(seed)
+        f32 = np.float32
+        mk = lambda a: torch.from_numpy(a.astype(f32)).to(dev)  # noqa: E731
+        return {
+            "rgb": mk(rng.uniform(size=(n, n, 3)) * 255.0),
+            "gray": mk(rng.uniform(size=(n, n)) * 255.0),
+            "gx": mk(rng.standard_normal((n, n))),
+            "gy": mk(rng.standard_normal((n, n))),
+            "sd": mk(rng.standard_normal((n, n, 6))),
+            # BT.601 weights, for the library call that computes luma
+            "lum": mk(np.array([0.299, 0.587, 0.114])),
+        }
+
+    knobs = [(1, 1), (1, 8), (4, 8), (16, 32), (2, 16)]
+    sd_knobs = [(1, 1), (1, 8), (4, 8), (8, 16)]
+    return inputs, [
+        dict(name="wami_grayscale", stage="grayscale", op=Y.grayscale,
+             ref=Y.grayscale_oracle, counter=Y.grayscale_kernel,
+             args=("rgb",), knobs=knobs, tol=1e-5,
+             bytes_px=16, flops_px=5,
+             library=lambda x: x["rgb"] @ x["lum"],
+             source="src/repro_torch/csrc/wami_grayscale.cu",
+             replaces="src/repro/kernels/wami_grayscale/kernel.py:35"),
+        dict(name="wami_gradient", stage="gradient", op=G.gradient,
+             ref=G.gradient_oracle, counter=G.gradient_kernel,
+             args=("gray",), knobs=knobs, tol=1e-5,
+             bytes_px=12, flops_px=4, library=None,
+             source="src/repro_torch/csrc/wami_gradient.cu",
+             replaces="src/repro/kernels/wami_gradient/kernel.py:56"),
+        dict(name="wami_steepest_descent", stage="steep_descent",
+             op=S.steepest_descent, ref=S.steepest_descent_oracle,
+             counter=S.steepest_descent_kernel, args=("gx", "gy"),
+             knobs=sd_knobs, tol=1e-5, bytes_px=32, flops_px=4,
+             library=None,
+             source="src/repro_torch/csrc/wami_steep.cu",
+             replaces="src/repro/kernels/wami_steep/kernel.py:56"),
+        dict(name="wami_hessian", stage="hessian", op=S.hessian,
+             ref=S.hessian_oracle, counter=S.hessian_kernel,
+             args=("sd",), knobs=knobs, tol=1e-4,
+             bytes_px=24, flops_px=42,
+             library=lambda x: (x["sd"].reshape(-1, 6).T
+                                @ x["sd"].reshape(-1, 6)),
+             source="src/repro_torch/csrc/wami_steep.cu",
+             replaces="src/repro/kernels/wami_steep/kernel.py:87"),
+    ]
+
+
+def phase_parity(dev, inputs, table):
+    """Every kernel against its plain version on the card; returns the
+    largest absolute error per kernel."""
+    import torch
+    errs = {}
+    for k in table:
+        worst = 0.0
+        for n in (TILE, FRAME):
+            x = inputs(n, dev, seed=3)
+            args = [x[a] for a in k["args"]]
+            want = k["ref"](*args)
+            for ports, unrolls in k["knobs"]:
+                got = k["op"](*args, ports=ports, unrolls=unrolls)
+                torch.cuda.synchronize(dev)
+                pairs = (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)])
+                for g, w in pairs:
+                    _require(g.shape == w.shape, (k["name"], g.shape, w.shape))
+                    d, rel = _close_err(g, w)
+                    if not rel < k["tol"]:
+                        raise RuntimeError(
+                            f"{k['name']} at {n}x{n}, ports={ports}, "
+                            f"unrolls={unrolls}: max|d|={d:.3g}, "
+                            f"relative {rel:.3g} >= {k['tol']}")
+                    worst = max(worst, d)
+        if k["name"] == "wami_hessian":
+            # two passes, no float atomics: the same bits on every run
+            x = inputs(FRAME, dev, seed=4)
+            runs = [k["op"](x["sd"], ports=4, unrolls=8) for _ in range(3)]
+            _require(all(torch.equal(r, runs[0]) for r in runs),
+                     "Hessian differs from run to run")
+        errs[k["name"]] = worst
+        print(f"[parity] {k['name']}: max|d| {worst:.3g} over "
+              f"{2 * len(k['knobs'])} (shape, knob) points, tol "
+              f"{k['tol']:g} relative", flush=True)
+    return errs
+
+
+def synthetic_bayer(n, frames=3, seed=0):
+    """A smooth scene, the same scene again, and the scene with a bright
+    square moved in: a (frames, n, n) float32 Bayer stream."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    raw = rng.uniform(size=(n + 8, n + 8))
+    k = np.ones(9) / 9.0
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, "valid"), 0, raw)
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, "valid"), 1, img)
+    base = (img * 1000.0).astype(np.float32)
+    out = np.stack([base] * frames)
+    s = n // 8
+    out[-1, s:2 * s, s:2 * s] += 1500.0
+    return out
+
+
+def phase_functional(dev):
+    import torch
+    from repro_torch.apps.wami import wami_app
+    frames = synthetic_bayer(FRAME)
+    t0 = time.perf_counter()
+    masks, ps = wami_app(frames, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    _require(masks.shape == (2, FRAME, FRAME) and ps.shape == (2, 6),
+             (masks.shape, ps.shape))
+    _require(bool(torch.isfinite(ps).all()), ps)
+    fg = [float(m.float().mean()) for m in masks]
+    s = FRAME // 8
+    moved = float(masks[1, s:2 * s, s:2 * s].float().mean())
+    print(f"[functional] wami_app 3 x {FRAME}x{FRAME}: {wall:.3f} s; "
+          f"p = {[[round(v, 6) for v in p.tolist()] for p in ps]}; "
+          f"foreground {fg[0]:.4f}, {fg[1]:.4f} (moved square "
+          f"{moved:.3f})", flush=True)
+    _require(fg[0] < 0.1 and moved > 0.5, (fg, moved))
+    # the same code on the CPU at a small size is the reference
+    small = synthetic_bayer(64, seed=1)
+    m_gpu, p_gpu = wami_app(small, device=dev)
+    m_cpu, p_cpu = wami_app(small, device="cpu")
+    dp = float((p_gpu.cpu() - p_cpu).abs().max())
+    dm = int((m_gpu.cpu() != m_cpu).sum())
+    print(f"[functional] 64x64 card vs CPU: max|d p| {dp:.3g}, "
+          f"mask pixels differing {dm} of {m_cpu.numel()}", flush=True)
+    _require(dp < 1e-3 and dm <= m_cpu.numel() // 1000, (dp, dm))
+    return {"p": ps.tolist(), "foreground": fg, "moved_square": moved,
+            "wall_s": wall, "cpu_max_dp": dp, "cpu_mask_diff": dm}
+
+
+def phase_dse(dev, table):
+    """The main path: record-mode COSMOS session + exhaustive baseline
+    over one CudaOracle.  Launch counts are zeroed just before and read
+    just after."""
+    import torch
+    from repro_torch.apps.wami import (wami_cuda_oracle, wami_cuda_session,
+                                       wami_knob_spaces)
+    from repro_torch.core import (MeasurementSet, MeasurementStore,
+                                  exhaustive_dse)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wami_cuda_tile128.json")
+        for k in table:
+            k["counter"].launches = 0
+        t0 = time.perf_counter()
+        oracle = wami_cuda_oracle("record", store_path=path, device=dev)
+        session = wami_cuda_session(oracle=oracle)
+        res = session.run()
+        spaces = wami_knob_spaces()
+        exh = exhaustive_dse(list(spaces), oracle, spaces)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k["name"]: k["counter"].launches for k in table}
+        oracle.flush()
+        rec = MeasurementStore.load(path)
+        replay = wami_cuda_oracle(
+            "replay", device=dev, measurements=MeasurementSet.from_store(
+                MeasurementStore.load(path), tile=TILE))
+        res2 = wami_cuda_session(oracle=replay).run()
+    front = res.pareto()
+    print(f"[dse] device_kind {oracle.device_kind!r}, shared-memory "
+          f"budget {oracle.smem_budget} B, {wall:.2f} s", flush=True)
+    print(f"[dse] {'component':<14}{'cosmos':>8}{'exhaustive':>12}")
+    for name in spaces:
+        print(f"[dse] {name:<14}{res.invocations.get(name, 0):>8}"
+              f"{exh.invocations.get(name, 0):>12}")
+    print(f"[dse] {'total':<14}{res.total_invocations:>8}"
+          f"{exh.total_invocations:>12}  (x{exh.total_invocations / res.total_invocations:.2f}); "
+          f"mapped points {len(res.mapped)}, front {len(front)}, "
+          f"theta [{res.theta_min:.6g}, {res.theta_max:.6g}]", flush=True)
+    print(f"[dse] launches in the drive: {launches}", flush=True)
+    walls = {}
+    for (comp, p, u), w in sorted(rec.entries.items()):
+        walls.setdefault(comp, {})[f"p{p}:u{u}"] = w
+    for comp, ws in walls.items():
+        vals = sorted(ws.values())
+        print(f"[dse] {comp}: {len(vals)} knob points timed, wall "
+              f"{vals[0] * 1e6:.2f}..{vals[-1] * 1e6:.2f} us per launch",
+              flush=True)
+    dead = [n for n, c in launches.items() if c <= 0]
+    _require(not dead, f"kernels never launched on the main path: {dead}")
+    _require(set(walls) == {k["stage"] for k in table}, sorted(walls))
+    _require(res.mapped and all(
+        math.isfinite(m.theta_actual) and m.theta_actual > 0
+        and math.isfinite(m.cost_actual) for m in res.mapped),
+        "a mapped system point is not finite")
+    _require(res.total_invocations < exh.total_invocations,
+             "COSMOS did not beat the exhaustive baseline on invocations")
+    _require(repr(res2.mapped) == repr(res.mapped),
+             "replaying the recording changed the front")
+    print("[dse] replay of the recording reproduces the front", flush=True)
+    return {"launches": launches, "cosmos": res.invocations,
+            "exhaustive": exh.invocations, "front": len(front),
+            "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
+            "smem_budget": oracle.smem_budget}
+
+
+def _time_ms(dev, fn):
+    """Device milliseconds per call, host issue time excluded."""
+    from repro_torch.core.cuda_oracle import device_time_s
+    return device_time_s(fn, launches=TIME_LAUNCHES, reps=TIME_REPS,
+                         device=dev) * 1e3
+
+
+def _call_ms(dev, fn):
+    """Milliseconds per call as a Python caller sees them: CUDA events
+    around back-to-back calls, host issue time included."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(TIME_REPS):
+        start.record()
+        for _ in range(TIME_LAUNCHES):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / TIME_LAUNCHES)
+    return best
+
+
+def phase_times(dev, inputs, table, ports=1, unrolls=8):
+    out = {}
+    for k in table:
+        for n in (TILE, FRAME):
+            x = inputs(n, dev, seed=5)
+            args = [x[a] for a in k["args"]]
+            ms = _time_ms(dev, lambda: k["op"](*args, ports=ports,
+                                               unrolls=unrolls))
+            plain = _time_ms(dev, lambda: k["ref"](*args))
+            lib = (None if k["library"] is None
+                   else _time_ms(dev, lambda: k["library"](x)))
+            t_bytes = k["bytes_px"] * n * n / HBM_BYTES_PER_S * 1e3
+            t_ops = k["flops_px"] * n * n / FP32_FLOPS_PER_S * 1e3
+            call = _call_ms(dev, lambda: k["op"](*args, ports=ports,
+                                                 unrolls=unrolls))
+            row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "call_ms": call,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": k["bytes_px"] * n * n, "flops": k["flops_px"] * n * n}
+            out.setdefault(k["name"], {})[n] = row
+            lib_s = "-" if lib is None else f"{lib:.5f}"
+            print(f"[times] {k['name']} {n}x{n} (ports={ports}, "
+                  f"unrolls={unrolls}): kernel {ms:.5f} ms (per Python "
+                  f"call {call:.5f} ms), plain {plain:.5f} ms, library "
+                  f"{lib_s} ms, bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']})", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every number to this JSON")
+    args = ap.parse_args(argv)
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.build import build_all
+
+    # float32 products in full float32, as the plain versions' reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(f"[device] {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, Python {sys.version.split()[0]}",
+          flush=True)
+    t0 = time.perf_counter()
+    libs = build_all()
+    print(f"[device] built {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    inputs, table = kernel_table()
+    errs = phase_parity(dev, inputs, table)
+    functional = phase_functional(dev)
+    dse = phase_dse(dev, table)
+    times = phase_times(dev, inputs, table)
+
+    kernels = []
+    for k in table:
+        t = times[k["name"]][TILE]
+        kernels.append({
+            "name": k["name"], "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": dse["launches"][k["name"]],
+            "max_abs_err": errs[k["name"]],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": [TILE, TILE], "knobs": {"ports": 1, "unrolls": 8},
+            "call_ms": t["call_ms"],
+            "frame512": {key: times[k["name"]][FRAME][key] for key in
+                         ("ms", "call_ms", "plain_ms", "bound_ms",
+                          "library_ms")},
+        })
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"nvidia_smi": smi, "kernels": kernels,
+                       "functional": functional, "dse": dse,
+                       "times": times}, f, indent=1)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
