@@ -10,15 +10,19 @@ which fails the run on any error:
   1. device  — the card's name and power limit; build every kernel
      under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. parity  — every kernel against its plain PyTorch version on the
-     card, at tile 128 and at the 512x512 frame, over several knob
-     points (tolerance max|d| / max(1, max|ref|): 1e-5, Hessian 1e-4);
+     card, at tile 128 and at the 512x512 frame, over the stage's
+     Table-1 knob points (tolerance max|d| / max(1, max|ref|): 1e-5,
+     Hessian 1e-4; the change-detection mask exactly equal), debayer
+     also on a 30x64 frame whose 5-row blocks do not align to the Bayer
+     quad, warp also at the DSE's affine parameters (which clamp at the
+     border), and every stage of ``wami_cuda_parity_cases``;
   3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
      and at 64x64 against the same code on the CPU;
   4. measured DSE — the main path: ``wami_cuda_session`` in record mode
-     (characterize, plan, map, with the four kernels timed on the card)
-     and ``exhaustive_dse`` over the same oracle, launch counts read
-     around exactly that run; the recording is replayed and must give
-     the same front;
+     (characterize, plan, map, with the seven kernels timed on the
+     card) and ``exhaustive_dse`` over the same oracle, launch counts
+     read around exactly that run; the recording is replayed and must
+     give the same front;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
@@ -51,8 +55,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 TILE, FRAME = 128, 512
 # calls per timed reading: short enough that a plain version's kernels
-# (up to ~10 a call) fit the device's queue of pending launches
+# fit the device's queue of pending launches (about a thousand):
+# 20 calls for the kernels and the short plain versions (up to ~10
+# kernels a call), 5 for the plain versions of ~40-55 kernels a call
 TIME_LAUNCHES = 20
+TIME_LAUNCHES_LONG = 5
 TIME_REPS = 10                   # readings; the best is kept
 
 
@@ -73,27 +80,59 @@ def kernel_table():
     knob points, tolerance, bytes and flops per pixel, library call."""
     import numpy as np
     import torch
+    from repro_torch.apps.wami.cuda import DSE_P_AFFINE, PARITY_P_AFFINE
+    from repro_torch.kernels import wami_change_det as CD
+    from repro_torch.kernels import wami_debayer as D
     from repro_torch.kernels import wami_gradient as G
     from repro_torch.kernels import wami_grayscale as Y
     from repro_torch.kernels import wami_steep as S
+    from repro_torch.kernels import wami_warp as WP
 
-    def inputs(n, dev, seed):
+    def inputs(n, dev, seed, width=None):
+        """Inputs of an (n, width or n) frame on ``dev``."""
+        H, W = n, width or n
         rng = np.random.default_rng(seed)
         f32 = np.float32
         mk = lambda a: torch.from_numpy(a.astype(f32)).to(dev)  # noqa: E731
-        return {
-            "rgb": mk(rng.uniform(size=(n, n, 3)) * 255.0),
-            "gray": mk(rng.uniform(size=(n, n)) * 255.0),
-            "gx": mk(rng.standard_normal((n, n))),
-            "gy": mk(rng.standard_normal((n, n))),
-            "sd": mk(rng.standard_normal((n, n, 6))),
+        x = {
+            "rgb": mk(rng.uniform(size=(H, W, 3)) * 255.0),
+            "gray": mk(rng.uniform(size=(H, W)) * 255.0),
+            "gx": mk(rng.standard_normal((H, W))),
+            "gy": mk(rng.standard_normal((H, W))),
+            "sd": mk(rng.standard_normal((H, W, 6))),
             # BT.601 weights, for the library call that computes luma
             "lum": mk(np.array([0.299, 0.587, 0.114])),
+            "bayer": mk(rng.uniform(size=(H, W)) * 1023.0),
+            "p": mk(np.array(PARITY_P_AFFINE)),
+            "p_dse": mk(np.array(DSE_P_AFFINE)),
+            "var": mk(np.full((H, W, 3), 36.0)),
+            # unequal mixture weights, with ties between the first two
+            # components in every third row
+            "w": mk(rng.uniform(0.05, 0.6, size=(H, W, 3))),
         }
+        x["mu"] = x["gray"][..., None] + mk(
+            rng.standard_normal((H, W, 3))) * 8.0
+        x["w"][::3, :, 1] = x["w"][::3, :, 0]
+        return x
 
-    knobs = [(1, 1), (1, 8), (4, 8), (16, 32), (2, 16)]
-    sd_knobs = [(1, 1), (1, 8), (4, 8), (8, 16)]
+    def table1(max_ports, max_unrolls):
+        """Knob points of a stage's Table-1 space: its corners, the
+        default (1, 8) and one point inside."""
+        return sorted({(1, 1), (1, 8), (4, 8), (1, max_unrolls),
+                       (max_ports, max_unrolls), (2, max_unrolls // 2)})
+
+    knobs = table1(16, 32)
+    sd_knobs = table1(8, 16)
     return inputs, [
+        dict(name="wami_debayer", stage="debayer", op=D.debayer,
+             ref=D.debayer_oracle, counter=D.debayer_kernel,
+             args=("bayer",), knobs=knobs, tol=1e-5,
+             # 30 x 64 at (2, 5): 5-row blocks off the 2 x 2 Bayer quad
+             odd_frames=[((30, 64), [(2, 5), (1, 5), (4, 3)])],
+             bytes_px=16, flops_px=12, library=None,
+             plain_launches=TIME_LAUNCHES_LONG,
+             source="src/repro_torch/csrc/wami_debayer.cu",
+             replaces="src/repro/kernels/wami_debayer/kernel.py:70"),
         dict(name="wami_grayscale", stage="grayscale", op=Y.grayscale,
              ref=Y.grayscale_oracle, counter=Y.grayscale_kernel,
              args=("rgb",), knobs=knobs, tol=1e-5,
@@ -117,39 +156,83 @@ def kernel_table():
         dict(name="wami_hessian", stage="hessian", op=S.hessian,
              ref=S.hessian_oracle, counter=S.hessian_kernel,
              args=("sd",), knobs=knobs, tol=1e-4,
-             bytes_px=24, flops_px=42,
+             bytes_px=24, flops_px=42, bytes_fixed=36 * 4,
              library=lambda x: (x["sd"].reshape(-1, 6).T
                                 @ x["sd"].reshape(-1, 6)),
              source="src/repro_torch/csrc/wami_steep.cu",
              replaces="src/repro/kernels/wami_steep/kernel.py:87"),
+        dict(name="wami_warp", stage="warp", op=WP.warp_affine,
+             ref=WP.warp_affine_oracle, counter=WP.warp_kernel,
+             args=("gray", "p"), knobs=sd_knobs, tol=1e-5,
+             # the DSE's p, whose source cells clamp at the border
+             alt_args=[("gray", "p_dse")],
+             bytes_px=8, flops_px=22, bytes_fixed=6 * 4, library=None,
+             plain_launches=TIME_LAUNCHES_LONG,
+             source="src/repro_torch/csrc/wami_warp.cu",
+             replaces="src/repro/kernels/wami_warp/kernel.py:64"),
+        dict(name="wami_change_det", stage="change_det",
+             op=CD.change_detection, ref=CD.change_detection_oracle,
+             counter=CD.change_det_kernel, args=("gray", "mu", "var", "w"),
+             knobs=sd_knobs, tol=1e-5, bytes_px=77, flops_px=86,
+             library=None, plain_launches=TIME_LAUNCHES_LONG,
+             source="src/repro_torch/csrc/wami_change_det.cu",
+             replaces="src/repro/kernels/wami_change_det/kernel.py:88"),
     ]
+
+
+def _check_outputs(what, got, want, tol):
+    """max|d| of a kernel's outputs against its plain version's; a bool
+    output (a mask) must be exactly equal."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    _require(len(got) == len(want), (what, len(got), len(want)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        _require(g.shape == w.shape and g.dtype == w.dtype,
+                 (what, g.shape, w.shape, g.dtype, w.dtype))
+        if g.dtype == torch.bool:
+            bad = int((g != w).sum())
+            if bad:
+                raise RuntimeError(f"{what}: {bad} mask pixels differ")
+            continue
+        d, rel = _close_err(g, w)
+        if not rel < tol:
+            raise RuntimeError(f"{what}: max|d|={d:.3g}, relative "
+                               f"{rel:.3g} >= {tol}")
+        worst = max(worst, d)
+    return worst
+
+
+def _parity_cases(k):
+    """(H, W, input names, knob points) a kernel is checked at."""
+    for names in [k["args"]] + k.get("alt_args", []):
+        for n in (TILE, FRAME):
+            yield n, n, names, k["knobs"]
+    for (H, W), knobs in k.get("odd_frames", []):
+        yield H, W, k["args"], knobs
 
 
 def phase_parity(dev, inputs, table):
     """Every kernel against its plain version on the card; returns the
     largest absolute error per kernel."""
     import torch
+    from repro_torch.apps.wami.cuda import wami_cuda_parity_cases
     errs = {}
     for k in table:
-        worst = 0.0
-        for n in (TILE, FRAME):
-            x = inputs(n, dev, seed=3)
-            args = [x[a] for a in k["args"]]
+        worst, points = 0.0, 0
+        for H, W, names, knobs in _parity_cases(k):
+            x = inputs(H, dev, seed=3, width=W)
+            args = [x[a] for a in names]
             want = k["ref"](*args)
-            for ports, unrolls in k["knobs"]:
+            for ports, unrolls in knobs:
                 got = k["op"](*args, ports=ports, unrolls=unrolls)
                 torch.cuda.synchronize(dev)
-                pairs = (zip(got, want) if isinstance(got, tuple)
-                         else [(got, want)])
-                for g, w in pairs:
-                    _require(g.shape == w.shape, (k["name"], g.shape, w.shape))
-                    d, rel = _close_err(g, w)
-                    if not rel < k["tol"]:
-                        raise RuntimeError(
-                            f"{k['name']} at {n}x{n}, ports={ports}, "
-                            f"unrolls={unrolls}: max|d|={d:.3g}, "
-                            f"relative {rel:.3g} >= {k['tol']}")
-                    worst = max(worst, d)
+                worst = max(worst, _check_outputs(
+                    f"{k['name']} at {H}x{W} ({', '.join(names)}), "
+                    f"ports={ports}, unrolls={unrolls}", got, want,
+                    k["tol"]))
+                points += 1
         if k["name"] == "wami_hessian":
             # two passes, no float atomics: the same bits on every run
             x = inputs(FRAME, dev, seed=4)
@@ -158,8 +241,15 @@ def phase_parity(dev, inputs, table):
                      "Hessian differs from run to run")
         errs[k["name"]] = worst
         print(f"[parity] {k['name']}: max|d| {worst:.3g} over "
-              f"{2 * len(k['knobs'])} (shape, knob) points, tol "
-              f"{k['tol']:g} relative", flush=True)
+              f"{points} (shape, knob) points, tol {k['tol']:g} relative",
+              flush=True)
+    for name, op, ref, args in wami_cuda_parity_cases(TILE, dev):
+        got, want = op(*args), ref(*args)
+        torch.cuda.synchronize(dev)
+        d = _check_outputs(f"{name} (parity case)", got, want,
+                           1e-4 if name == "wami_hessian" else 1e-5)
+        print(f"[parity] wami_cuda_parity_cases {name}: max|d| {d:.3g}",
+              flush=True)
     return errs
 
 
@@ -219,7 +309,7 @@ def phase_dse(dev, table):
     from repro_torch.apps.wami import (wami_cuda_oracle, wami_cuda_session,
                                        wami_knob_spaces)
     from repro_torch.core import (MeasurementSet, MeasurementStore,
-                                  exhaustive_dse)
+                                  OracleLedger, exhaustive_dse)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "wami_cuda_tile128.json")
         for k in table:
@@ -229,7 +319,8 @@ def phase_dse(dev, table):
         session = wami_cuda_session(oracle=oracle)
         res = session.run()
         spaces = wami_knob_spaces()
-        exh = exhaustive_dse(list(spaces), oracle, spaces)
+        exh_ledger = OracleLedger(oracle)
+        exh = exhaustive_dse(list(spaces), oracle, spaces, exh_ledger)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         launches = {k["name"]: k["counter"].launches for k in table}
@@ -242,12 +333,19 @@ def phase_dse(dev, table):
     front = res.pareto()
     print(f"[dse] device_kind {oracle.device_kind!r}, shared-memory "
           f"budget {oracle.smem_budget} B, {wall:.2f} s", flush=True)
-    print(f"[dse] {'component':<14}{'cosmos':>8}{'exhaustive':>12}")
+    failed = dict(session.ledger.failed)
+    exh_failed = dict(exh_ledger.failed)
+    print(f"[dse] {'component':<14}{'cosmos':>8}{'failed':>8}"
+          f"{'exhaustive':>12}{'failed':>8}  (failed: infeasible points, "
+          f"shared memory {oracle.smem_budget} B)")
     for name in spaces:
         print(f"[dse] {name:<14}{res.invocations.get(name, 0):>8}"
-              f"{exh.invocations.get(name, 0):>12}")
+              f"{failed.get(name, 0):>8}{exh.invocations.get(name, 0):>12}"
+              f"{exh_failed.get(name, 0):>8}")
     print(f"[dse] {'total':<14}{res.total_invocations:>8}"
-          f"{exh.total_invocations:>12}  (x{exh.total_invocations / res.total_invocations:.2f}); "
+          f"{sum(failed.values()):>8}{exh.total_invocations:>12}"
+          f"{sum(exh_failed.values()):>8}  "
+          f"(x{exh.total_invocations / res.total_invocations:.2f}); "
           f"mapped points {len(res.mapped)}, front {len(front)}, "
           f"theta [{res.theta_min:.6g}, {res.theta_max:.6g}]", flush=True)
     print(f"[dse] launches in the drive: {launches}", flush=True)
@@ -272,15 +370,16 @@ def phase_dse(dev, table):
              "replaying the recording changed the front")
     print("[dse] replay of the recording reproduces the front", flush=True)
     return {"launches": launches, "cosmos": res.invocations,
-            "exhaustive": exh.invocations, "front": len(front),
+            "exhaustive": exh.invocations, "cosmos_failed": failed,
+            "exhaustive_failed": exh_failed, "front": len(front),
             "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
             "smem_budget": oracle.smem_budget}
 
 
-def _time_ms(dev, fn):
+def _time_ms(dev, fn, launches=TIME_LAUNCHES):
     """Device milliseconds per call, host issue time excluded."""
     from repro_torch.core.cuda_oracle import device_time_s
-    return device_time_s(fn, launches=TIME_LAUNCHES, reps=TIME_REPS,
+    return device_time_s(fn, launches=launches, reps=TIME_REPS,
                          device=dev) * 1e3
 
 
@@ -311,10 +410,12 @@ def phase_times(dev, inputs, table, ports=1, unrolls=8):
             args = [x[a] for a in k["args"]]
             ms = _time_ms(dev, lambda: k["op"](*args, ports=ports,
                                                unrolls=unrolls))
-            plain = _time_ms(dev, lambda: k["ref"](*args))
+            plain = _time_ms(dev, lambda: k["ref"](*args),
+                             k.get("plain_launches", TIME_LAUNCHES))
             lib = (None if k["library"] is None
                    else _time_ms(dev, lambda: k["library"](x)))
-            t_bytes = k["bytes_px"] * n * n / HBM_BYTES_PER_S * 1e3
+            nbytes = k["bytes_px"] * n * n + k.get("bytes_fixed", 0)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = k["flops_px"] * n * n / FP32_FLOPS_PER_S * 1e3
             call = _call_ms(dev, lambda: k["op"](*args, ports=ports,
                                                  unrolls=unrolls))
@@ -322,7 +423,7 @@ def phase_times(dev, inputs, table, ports=1, unrolls=8):
                    "call_ms": call,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "bytes": k["bytes_px"] * n * n, "flops": k["flops_px"] * n * n}
+                   "bytes": nbytes, "flops": k["flops_px"] * n * n}
             out.setdefault(k["name"], {})[n] = row
             lib_s = "-" if lib is None else f"{lib:.5f}"
             print(f"[times] {k['name']} {n}x{n} (ports={ports}, "

@@ -22,13 +22,15 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ...core.hlsim import ComponentSpec, LoopNest
 from ...core.knobs import KnobSpace
+from ...kernels.wami_change_det.ref import change_detection_ref
+from ...kernels.wami_debayer.ref import debayer_ref
 from ...kernels.wami_gradient.ref import gradient_ref
 from ...kernels.wami_grayscale.ref import grayscale_ref
 from ...kernels.wami_steep.ref import hessian_ref, steepest_descent_ref
+from ...kernels.wami_warp.ref import warp_affine_ref
 from .cdfg import WAMI_KERNEL_FACTS
 from .knobs import wami_knob_space
 
@@ -43,48 +45,14 @@ __all__ = [
 FRAME = 512          # full frame edge (pixels)
 TILE = 128           # PLM-resident tile edge
 N_LK = 6             # Lucas-Kanade refinement iterations per frame
-_GMM_K = 3           # change-detection mixture size
 
 
 # ======================================================================
 # Full-frame implementations
 # ======================================================================
 
-def debayer(bayer: torch.Tensor) -> torch.Tensor:
-    """Bilinear demosaic of an RGGB Bayer mosaic -> (H, W, 3) float32.
-
-    R G      (0,0)=R (0,1)=G
-    G B      (1,0)=G (1,1)=B
-    """
-    img = bayer.to(torch.float32)
-    H, W = img.shape
-    p = F.pad(img[None], (1, 1, 1, 1), mode="reflect")[0]
-    c = p[1:-1, 1:-1]
-    n, s = p[:-2, 1:-1], p[2:, 1:-1]
-    w, e = p[1:-1, :-2], p[1:-1, 2:]
-    nw, ne = p[:-2, :-2], p[:-2, 2:]
-    sw, se = p[2:, :-2], p[2:, 2:]
-    cross = (n + s + w + e) * 0.25
-    diag = (nw + ne + sw + se) * 0.25
-    horiz = (w + e) * 0.5
-    vert = (n + s) * 0.5
-
-    yy, xx = torch.meshgrid(torch.arange(H, device=img.device),
-                            torch.arange(W, device=img.device), indexing="ij")
-    r_loc = (yy % 2 == 0) & (xx % 2 == 0)
-    g1_loc = (yy % 2 == 0) & (xx % 2 == 1)
-    g2_loc = (yy % 2 == 1) & (xx % 2 == 0)
-    b_loc = (yy % 2 == 1) & (xx % 2 == 1)
-
-    r = torch.where(r_loc, c, torch.where(g1_loc, horiz,
-                                          torch.where(g2_loc, vert, diag)))
-    g = torch.where(r_loc | b_loc, cross, c)
-    b = torch.where(b_loc, c, torch.where(g2_loc, horiz,
-                                          torch.where(g1_loc, vert, diag)))
-    return torch.stack([r, g, b], dim=-1)
-
-
-# the template-side stages are the plain versions of their CUDA kernels
+# the stages with a CUDA kernel are that kernel's plain version
+debayer = debayer_ref                      # bilinear RGGB demosaic
 grayscale = grayscale_ref                  # ITU-R BT.601 luma
 gradient = gradient_ref                    # central differences, edge pad
 steepest_descent = steepest_descent_ref    # (H, W, 6) affine sd images
@@ -130,64 +98,8 @@ def matrix_invert(a: torch.Tensor) -> torch.Tensor:
     return aug[:, n:]
 
 
-def warp_affine(img: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Bilinear warp of ``img`` by affine params p=(p1..p6):
-    x' = (1+p1) x + p2 y + p3 ;  y' = p4 x + (1+p5) y + p6."""
-    H, W = img.shape
-    yy, xx = torch.meshgrid(
-        torch.arange(H, dtype=img.dtype, device=img.device),
-        torch.arange(W, dtype=img.dtype, device=img.device), indexing="ij")
-    sx = (1.0 + p[0]) * xx + p[1] * yy + p[2]
-    sy = p[3] * xx + (1.0 + p[4]) * yy + p[5]
-    x0 = torch.clamp(torch.floor(sx), 0, W - 2)
-    y0 = torch.clamp(torch.floor(sy), 0, H - 2)
-    fx = torch.clamp(sx - x0, 0.0, 1.0)
-    fy = torch.clamp(sy - y0, 0.0, 1.0)
-    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
-    i00 = img[y0i, x0i]
-    i01 = img[y0i, x0i + 1]
-    i10 = img[y0i + 1, x0i]
-    i11 = img[y0i + 1, x0i + 1]
-    top = i00 * (1 - fx) + i01 * fx
-    bot = i10 * (1 - fx) + i11 * fx
-    return top * (1 - fy) + bot * fy
-
-
-def change_detection(gray: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
-                     w: torch.Tensor, *, lr: float = 0.05,
-                     mahal_thresh: float = 6.25, fg_thresh: float = 0.7
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                torch.Tensor]:
-    """Per-pixel Gaussian-mixture background subtraction (K=3).
-
-    Returns (mask, mu', var', w').  State arrays have shape (H, W, K).
-    """
-    x = gray[..., None]
-    d2 = (x - mu) ** 2 / torch.clamp(var, min=1e-4)
-    match = d2 < mahal_thresh                       # (H, W, K)
-    any_match = torch.any(match, dim=-1)
-    # best (lowest-d2) matching mixture component; argmin takes the
-    # first index among ties
-    d2_masked = torch.where(match, d2, torch.full_like(d2, float("inf")))
-    best = torch.argmin(d2_masked, dim=-1)
-    onehot = (F.one_hot(best, _GMM_K).to(gray.dtype)
-              * any_match[..., None].to(gray.dtype))
-
-    mu_n = mu + onehot * lr * (x - mu)
-    var_n = var + onehot * lr * ((x - mu) ** 2 - var)
-    w_n = (1 - lr) * w + lr * onehot
-    # no match: replace weakest component with a fresh one centred at x
-    weakest = torch.argmin(w, dim=-1)
-    wh = (F.one_hot(weakest, _GMM_K).to(gray.dtype)
-          * (~any_match)[..., None].to(gray.dtype))
-    mu_n = mu_n * (1 - wh) + wh * x
-    var_n = var_n * (1 - wh) + wh * 25.0
-    w_n = w_n * (1 - wh) + wh * lr
-    w_n = w_n / torch.sum(w_n, dim=-1, keepdim=True)
-    # foreground: matched component is low-weight, or no match at all
-    matched_w = torch.sum(onehot * w, dim=-1)
-    mask = (~any_match) | (matched_w < (1.0 - fg_thresh))
-    return mask, mu_n, var_n, w_n
+warp_affine = warp_affine_ref              # affine warp, bilinear
+change_detection = change_detection_ref    # per-pixel GMM, K=3
 
 
 # ======================================================================

@@ -3,13 +3,13 @@
 Binds the knob-parameterized CUDA kernels under ``repro_torch.kernels``
 to the COSMOS component names:
 
-  * four stages of the Lucas-Kanade template side are priced by
-    *running* their kernel on a PLM-sized tile (``ports`` -> column-bank
-    grid columns, ``unrolls`` -> rows per CTA): grayscale, gradient,
-    steepest descent, Hessian;
-  * every other stage — debayer, warp, change detection and the 6x6
-    matrix stages — is priced by the analytical fallback inside the same
-    oracle, so the full Fig. 8 TMG explores end-to-end.
+  * seven stages are priced by *running* their kernel on a PLM-sized
+    tile (``ports`` -> column-bank grid columns, ``unrolls`` -> rows per
+    CTA): debayer, grayscale, gradient, steepest descent, Hessian, warp,
+    change detection;
+  * the 6x6 matrix stages (``sd_update``, ``matrix_*``) have no kernel
+    worth measuring and are priced by the analytical fallback inside the
+    same oracle, so the full Fig. 8 TMG explores end-to-end.
 
 Inputs are baked deterministically per tile size from
 ``numpy.random.default_rng(42)``, so that record and replay price the
@@ -27,17 +27,27 @@ from ...core.cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
                                  device_kind_of, open_recording)
 from ...core.hlsim import HLSTool
 from ...core.session import ExplorationSession
-from ...kernels import wami_gradient, wami_grayscale, wami_steep
+from ...kernels import (wami_change_det, wami_debayer, wami_gradient,
+                        wami_grayscale, wami_steep, wami_warp)
 from ...utils import from_numpy, resolve_device
 from . import components as C
 from .pipeline import (MATRIX_INV_LATENCY_S, wami_hls_tool, wami_knob_spaces,
                        wami_tmg)
 
-__all__ = ["WAMI_CUDA_STAGES", "wami_cuda_components", "wami_cuda_oracle",
-           "wami_cuda_session"]
+__all__ = ["WAMI_CUDA_STAGES", "wami_cuda_components",
+           "wami_cuda_parity_cases", "wami_cuda_oracle", "wami_cuda_session"]
 
 # the stages with a CUDA kernel, in TMG order
-WAMI_CUDA_STAGES = ("grayscale", "gradient", "steep_descent", "hessian")
+WAMI_CUDA_STAGES = ("debayer", "grayscale", "gradient", "steep_descent",
+                    "hessian", "warp", "change_det")
+
+# the DSE's baked affine parameters: a shift large enough that the warp
+# clamps at the frame's border
+DSE_P_AFFINE = (0.01, -0.005, 0.8, 0.004, -0.01, -0.6)
+# shear terms small enough that every source fraction stays in
+# ~[0.3, 0.7]: the floor() cell is then the same however the address
+# arithmetic is rounded
+PARITY_P_AFFINE = (1 / 1024, -1 / 2048, 0.5, 1 / 2048, -1 / 1024, 0.5)
 
 
 def wami_cuda_components(tile: int = C.TILE, device=None
@@ -54,6 +64,15 @@ def wami_cuda_components(tile: int = C.TILE, device=None
         rng.standard_normal((tile, tile)).astype(f32),
         rng.standard_normal((tile, tile)).astype(f32),
         rng.standard_normal((tile, tile, 6)).astype(f32)), dev)
+    # drawn after the four stages above, which keep their inputs
+    bayer, noise = from_numpy((
+        (rng.uniform(size=(tile, tile)) * 1023.0).astype(f32),
+        rng.standard_normal((tile, tile, 3)).astype(f32)), dev)
+    p = torch.tensor(DSE_P_AFFINE, dtype=torch.float32, device=dev)
+    mu = gray[..., None] + noise * 8.0
+    var = torch.full((tile, tile, 3), 36.0, dtype=torch.float32, device=dev)
+    w = torch.full((tile, tile, 3), 1.0 / 3.0, dtype=torch.float32,
+                   device=dev)
 
     def bake(fn: Callable, *args: torch.Tensor) -> Callable:
         def build(ports: int, unrolls: int):
@@ -64,6 +83,11 @@ def wami_cuda_components(tile: int = C.TILE, device=None
 
     shape = (tile, tile)
     return {
+        "debayer": CudaKernelSpec(
+            name="debayer", shape=shape,
+            build=bake(wami_debayer.debayer, bayer),
+            vmem_bytes=wami_debayer.vmem_bytes,
+            grid_steps=wami_debayer.grid_steps, n_in=9, n_out=3),
         "grayscale": CudaKernelSpec(
             name="grayscale", shape=shape,
             build=bake(wami_grayscale.grayscale, rgb),
@@ -84,7 +108,57 @@ def wami_cuda_components(tile: int = C.TILE, device=None
             build=bake(wami_steep.hessian, sd),
             vmem_bytes=wami_steep.hessian_vmem_bytes,
             grid_steps=wami_steep.grid_steps, n_in=6, n_out=1),
+        "warp": CudaKernelSpec(
+            name="warp", shape=shape,
+            build=bake(wami_warp.warp_affine, gray, p),
+            vmem_bytes=wami_warp.vmem_bytes,
+            grid_steps=wami_warp.grid_steps, n_in=6, n_out=1),
+        "change_det": CudaKernelSpec(
+            name="change_det", shape=shape,
+            build=bake(wami_change_det.change_detection, gray, mu, var, w),
+            vmem_bytes=wami_change_det.vmem_bytes,
+            grid_steps=wami_change_det.grid_steps, n_in=10, n_out=10),
     }
+
+
+def wami_cuda_parity_cases(tile: int = C.TILE, device=None):
+    """(name, op, plain_fn, args) per WAMI stage kernel, on a (tile, tile)
+    frame on ``device`` (default: the CUDA card): each op at its default
+    knobs is held against its plain version.  Inputs come from
+    ``numpy.random.default_rng(3)``; the warp uses the small-shear
+    :data:`PARITY_P_AFFINE`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(3)
+    f32 = np.float32
+    bayer, rgb, gray, gx, gy, sd, noise = from_numpy((
+        (rng.uniform(size=(tile, tile)) * 1023.0).astype(f32),
+        (rng.uniform(size=(tile, tile, 3)) * 255.0).astype(f32),
+        (rng.uniform(size=(tile, tile)) * 255.0).astype(f32),
+        rng.standard_normal((tile, tile)).astype(f32),
+        rng.standard_normal((tile, tile)).astype(f32),
+        rng.standard_normal((tile, tile, 6)).astype(f32),
+        rng.standard_normal((tile, tile, 3)).astype(f32)), dev)
+    p = torch.tensor(PARITY_P_AFFINE, dtype=torch.float32, device=dev)
+    mu = gray[..., None] + noise * 8.0
+    var = torch.full((tile, tile, 3), 36.0, dtype=torch.float32, device=dev)
+    w = torch.full((tile, tile, 3), 1.0 / 3.0, dtype=torch.float32,
+                   device=dev)
+    return [
+        ("wami_debayer", wami_debayer.debayer, wami_debayer.debayer_oracle,
+         (bayer,)),
+        ("wami_grayscale", wami_grayscale.grayscale,
+         wami_grayscale.grayscale_oracle, (rgb,)),
+        ("wami_gradient", wami_gradient.gradient,
+         wami_gradient.gradient_oracle, (gray,)),
+        ("wami_steep", wami_steep.steepest_descent,
+         wami_steep.steepest_descent_oracle, (gx, gy)),
+        ("wami_hessian", wami_steep.hessian, wami_steep.hessian_oracle,
+         (sd,)),
+        ("wami_warp", wami_warp.warp_affine, wami_warp.warp_affine_oracle,
+         (gray, p)),
+        ("wami_change_det", wami_change_det.change_detection,
+         wami_change_det.change_detection_oracle, (gray, mu, var, w)),
+    ]
 
 
 def wami_cuda_oracle(mode: str = "measure", *, tile: int = C.TILE,
@@ -95,8 +169,8 @@ def wami_cuda_oracle(mode: str = "measure", *, tile: int = C.TILE,
                      device_kind: Optional[str] = None,
                      flush_every: int = 16,
                      **kwargs) -> CudaOracle:
-    """The measured WAMI oracle: the four kernels timed on ``device``
-    (default: the CUDA card), everything else priced by
+    """The measured WAMI oracle: the seven kernels timed on ``device``
+    (default: the CUDA card), the 6x6 matrix stages priced by
     ``wami_hls_tool()``.  ``"record"`` and ``"replay"`` go through
     ``measurements`` or the recording at ``store_path`` (record mode
     starts it when absent and flushes every ``flush_every`` timings).

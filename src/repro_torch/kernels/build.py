@@ -33,7 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every library under csrc/, one per kernel package
-SOURCES = ("wami_grayscale", "wami_gradient", "wami_steep")
+SOURCES = ("wami_debayer", "wami_grayscale", "wami_gradient", "wami_steep",
+           "wami_warp", "wami_change_det")
 _HEADERS = ("wami_common.cuh",)
 
 _lock = threading.Lock()

@@ -1,0 +1,49 @@
+"""ctypes binding of ``csrc/wami_debayer.cu`` (bilinear RGGB demosaic).
+
+The kernel reads the unpadded mosaic once and maps its neighbour
+indices through the reflect padding.  Its cost model stays the one the
+stage is priced by: nine shifted input views and three output planes
+per grid cell.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..build import CudaKernel, current_stream, require_cuda_f32
+from ..wami_common import grid_steps_model, knob_blocks, vmem_bytes_model
+
+__all__ = ["debayer_kernel", "debayer_cuda", "vmem_bytes", "grid_steps"]
+
+# centre + 8 neighbour views in, R/G/B planes out: the blocks a grid cell
+# works on
+_N_IN, _N_OUT = 9, 3
+
+debayer_kernel = CudaKernel(
+    "wami_debayer", "wami_debayer",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def debayer_cuda(bayer: torch.Tensor, *, ports: int = 1,
+                 unrolls: int = 8) -> torch.Tensor:
+    """bayer: (H, W) float32 mosaic on the card, H, W >= 2,
+    W % ports == 0 and H % unrolls == 0 -> (H, W, 3) RGB."""
+    H, W = bayer.shape
+    require_cuda_f32("bayer", bayer, (H, W))
+    knob_blocks(H, W, ports=ports, unrolls=unrolls)
+    if H < 2 or W < 2:
+        raise ValueError(f"debayer: reflect padding needs H, W >= 2, got "
+                         f"({H}, {W})")
+    rgb = torch.empty((H, W, 3), dtype=bayer.dtype, device=bayer.device)
+    with torch.cuda.device(bayer.device):
+        debayer_kernel.launch(bayer.data_ptr(), rgb.data_ptr(), H, W, ports,
+                              unrolls, current_stream(bayer.device))
+    return rgb
+
+
+vmem_bytes = functools.partial(vmem_bytes_model, n_in=_N_IN, n_out=_N_OUT)
+grid_steps = grid_steps_model

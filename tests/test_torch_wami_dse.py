@@ -2,11 +2,13 @@
 
   * analytical: ``wami_cosmos``/``wami_exhaustive`` in both packages;
   * measured, replay: the reference ``PallasOracle`` and the port's
-    ``CudaOracle`` over {grayscale, gradient, steep_descent, hessian},
+    ``CudaOracle`` over the four template-side stages {grayscale,
+    gradient, steep_descent, hessian} and over all seven kernels,
     everything else priced by ``wami_hls_tool()``, replaying the
     committed ``wami_pallas_tile128.json``;
   * measured, timer: the same two oracles in measure mode with one
-    deterministic timer (nothing is executed).
+    deterministic timer (nothing is executed), under the reference's
+    16 MiB budget and under the card's 232,448-byte shared memory.
 """
 
 import json
@@ -28,6 +30,7 @@ from repro_torch.core import (CudaOracle, MeasurementSet, MeasurementStore,
 
 STAGES = ("grayscale", "gradient", "steep_descent", "hessian")
 SMEM_16MIB = 16 * 1024 * 1024          # the reference's VMEM budget
+SMEM_H100 = 232448                     # an H100's opt-in smem per block
 
 
 def _timer(name, ports, unrolls, runner):
@@ -49,9 +52,20 @@ def _ref_oracle(specs, **kw):
 
 
 def _port_oracle(**kw):
+    """The port's seven-stage WAMI oracle on the CPU."""
     kw.setdefault("device_kind", "interpret")
     kw.setdefault("smem_budget", SMEM_16MIB)
     return TC.wami_cuda_oracle(device="cpu", **kw)
+
+
+def _port_oracle_over(stages, **kw):
+    """The port's oracle with only ``stages`` measured, the rest priced
+    by the fallback (the counterpart of ``_ref_oracle``)."""
+    comps = TC.wami_cuda_components(128, device="cpu")
+    kw.setdefault("smem_budget", SMEM_16MIB)
+    return CudaOracle({n: comps[n] for n in stages},
+                      fallback=TP.wami_hls_tool(), device="cpu",
+                      device_kind="interpret", native_tile=128, **kw)
 
 
 def _ref_session(oracle):
@@ -86,8 +100,9 @@ def test_measured_replay_is_byte_identical(ref_specs):
     ref = _ref_oracle(ref_specs, mode="replay",
                       measurements=JSet.from_store(JStore.load(path),
                                                    tile=128))
-    port = _port_oracle(mode="replay", measurements=MeasurementSet.from_store(
-        MeasurementStore.load(path), tile=128))
+    port = _port_oracle_over(STAGES, mode="replay",
+                             measurements=MeasurementSet.from_store(
+                                 MeasurementStore.load(path), tile=128))
     s_ref = _ref_session(ref)
     s_port = TC.wami_cuda_session(oracle=port)
     assert _books(s_port, s_port.run()) == _books(s_ref, s_ref.run())
@@ -100,7 +115,7 @@ def test_measured_replay_is_byte_identical(ref_specs):
 
 def test_measured_timer_drive_and_exhaustive_are_byte_identical(ref_specs):
     ref = _ref_oracle(ref_specs, mode="measure", timer=_timer)
-    port = _port_oracle(mode="measure", timer=_timer)
+    port = _port_oracle_over(STAGES, mode="measure", timer=_timer)
     s_ref = _ref_session(ref)
     s_port = TC.wami_cuda_session(oracle=port)
     assert _books(s_port, s_port.run()) == _books(s_ref, s_ref.run())
@@ -109,6 +124,82 @@ def test_measured_timer_drive_and_exhaustive_are_byte_identical(ref_specs):
     e_port = exhaustive_dse(names, port, TP.wami_knob_spaces())
     assert repr(e_port.fronts) == repr(e_ref.fronts)
     assert e_port.invocations == e_ref.invocations
+
+
+def test_seven_stages_have_the_reference_specs():
+    ref = wami_pallas_components(128)
+    port = TC.wami_cuda_components(128, device="cpu")
+    assert tuple(port) == tuple(ref) == TC.WAMI_CUDA_STAGES
+    for name, spec in port.items():
+        r = ref[name]
+        assert (spec.shape, spec.n_in, spec.n_out) == (r.shape, r.n_in,
+                                                       r.n_out)
+        for ports in (1, 2, 8):
+            for unrolls in (1, 4, 16):
+                for fn, rfn in ((spec.vmem_bytes, r.vmem_bytes),
+                                (spec.grid_steps, r.grid_steps)):
+                    assert (fn(128, 128, ports=ports, unrolls=unrolls)
+                            == rfn(128, 128, ports=ports, unrolls=unrolls))
+
+
+def test_seven_stage_replay_is_byte_identical():
+    """All seven kernels replay their walls from the committed recording;
+    only the 6x6 matrix stages are priced by the fallback."""
+    path = default_measurement_path(128)
+    ref = _ref_oracle(wami_pallas_components(128), mode="replay",
+                      measurements=JSet.from_store(JStore.load(path),
+                                                   tile=128))
+    port = _port_oracle(mode="replay", measurements=MeasurementSet.from_store(
+        MeasurementStore.load(path), tile=128))
+    s_ref = _ref_session(ref)
+    s_port = TC.wami_cuda_session(oracle=port)
+    res = s_port.run()
+    assert _books(s_port, res) == _books(s_ref, s_ref.run())
+    assert res.total_invocations == 135
+    assert len(res.mapped) == 10 and len(res.pareto()) == 9
+    # the walls the oracle priced came from the recording, one set per
+    # kernel stage
+    assert {key[0] for key in port._measured} == set(TC.WAMI_CUDA_STAGES)
+
+
+@pytest.mark.parametrize("budget", [SMEM_16MIB, SMEM_H100])
+def test_seven_stage_timer_drive_and_exhaustive_are_byte_identical(budget):
+    """The card's walk (the 232,448-byte budget) and the TPU's (16 MiB)
+    both equal the reference's under the same budget."""
+    specs = wami_pallas_components(128)
+    ref = _ref_oracle(specs, mode="measure", timer=_timer,
+                      vmem_budget=budget)
+    port = _port_oracle(mode="measure", timer=_timer, smem_budget=budget)
+    s_ref = _ref_session(ref)
+    s_port = TC.wami_cuda_session(oracle=port)
+    res = s_port.run()
+    assert _books(s_port, res) == _books(s_ref, s_ref.run())
+    failed = s_port.ledger.failed
+    # the counts of the reference's walk under each budget
+    assert (res.total_invocations, failed.get("debayer"),
+            failed.get("change_det"), len(res.pareto())) == {
+        SMEM_16MIB: (220, 11, 10, 8), SMEM_H100: (239, 26, 15, 9)}[budget]
+    names = list(JP.wami_knob_spaces())
+    e_ref = j_exhaustive(names, ref, JP.wami_knob_spaces())
+    e_port = exhaustive_dse(names, port, TP.wami_knob_spaces())
+    assert repr(e_port.fronts) == repr(e_ref.fronts)
+    assert e_port.invocations == e_ref.invocations
+    assert e_port.total_invocations == 949
+
+
+def test_card_budget_rules_out_the_largest_blocks():
+    """Under an H100's shared memory per block the double-buffered block
+    of debayer at (1, 32) and of change detection at (1, 16) no longer
+    fits; under the TPU's 16 MiB it does."""
+    card = _port_oracle(mode="measure", timer=_timer, smem_budget=SMEM_H100)
+    tpu = _port_oracle(mode="measure", timer=_timer)
+    for comp, unrolls, step in (("debayer", 32, 196608),
+                                ("change_det", 16, 163840)):
+        s = card.synthesize(comp, ports=1, unrolls=unrolls)
+        assert not s.feasible and math.isinf(s.lam)
+        ok = tpu.synthesize(comp, ports=1, unrolls=unrolls)
+        assert ok.feasible and ok.detail["vmem_step_bytes"] == step
+        assert card.synthesize(comp, ports=2, unrolls=unrolls).feasible
 
 
 def test_shared_memory_budget_is_the_lambda_constraint():

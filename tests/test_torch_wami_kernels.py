@@ -5,7 +5,7 @@ itself is held against that plain version on the card by
 ``chip_smoke.py``).  Inputs come from seeded numpy and feed both
 packages.  Tolerance: the reference's ``_close`` —
 max|Δ| / max(1, max|ref|) < 1e-5, and 1e-4 for the Hessian, whose sum
-order differs.
+order differs; the change-detection mask is compared exactly.
 """
 
 import jax.numpy as jnp
@@ -13,18 +13,27 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import wami_change_det as jcd
+from repro.kernels import wami_debayer as jdeb
 from repro.kernels import wami_gradient as jgrad
 from repro.kernels import wami_grayscale as jgray
 from repro.kernels import wami_steep as jsteep
+from repro.kernels import wami_warp as jwarp
+from repro_torch.apps.wami.cuda import DSE_P_AFFINE, PARITY_P_AFFINE
 from repro_torch.apps.wami.knobs import WAMI_KNOB_TABLE
 from repro_torch.core.knobs import powers_of_two
+from repro_torch.kernels import wami_change_det as tcd
+from repro_torch.kernels import wami_debayer as tdeb
 from repro_torch.kernels import wami_gradient as tgrad
 from repro_torch.kernels import wami_grayscale as tgray
 from repro_torch.kernels import wami_steep as tsteep
+from repro_torch.kernels import wami_warp as twarp
 
 TILE = 128
 KNOBS = [(1, 1), (4, 8), (16, 32)]          # (ports, unrolls)
 SD_KNOBS = [(1, 1), (4, 8), (8, 16)]        # steep_descent: max_ports 8
+# stages whose Table-1 knobs stop at 8 ports and 16 unrolls
+SMALL_KNOB_STAGES = ("steep_descent", "warp", "warp_dse", "change_det")
 
 
 def _close(a, b, tol=1e-5):
@@ -42,7 +51,32 @@ def _inputs(shape, seed=7):
         "gx": rng.standard_normal((H, W)).astype(np.float32),
         "gy": rng.standard_normal((H, W)).astype(np.float32),
         "sd": rng.standard_normal((H, W, 6)).astype(np.float32),
+        # drawn after the inputs above, which keep their values
+        **_later_inputs(rng, H, W),
     }
+
+
+def _later_inputs(rng, H, W):
+    bayer = (rng.uniform(size=(H, W)) * 1023.0).astype(np.float32)
+    img = (rng.uniform(size=(H, W)) * 255.0).astype(np.float32)
+    noise = rng.standard_normal((H, W, 3)).astype(np.float32)
+    return {
+        "bayer": bayer,
+        "img": img,
+        "p": np.array(PARITY_P_AFFINE, np.float32),
+        "p_dse": np.array(DSE_P_AFFINE, np.float32),
+        "mu": img[..., None] + noise * np.float32(8.0),
+        "var": np.full((H, W, 3), 36.0, np.float32),
+        # unequal weights, with ties between the first two components in
+        # every third row: the replaced component is the first weakest
+        "w": _weights(rng, H, W),
+    }
+
+
+def _weights(rng, H, W):
+    w = rng.uniform(0.05, 0.6, size=(H, W, 3)).astype(np.float32)
+    w[::3, :, 1] = w[::3, :, 0]
+    return w
 
 
 # (name, port op, jax oracle, jax pallas op, input names, tolerance)
@@ -56,6 +90,14 @@ CASES = {
                       jsteep.steepest_descent, ("gx", "gy"), 1e-5),
     "hessian": (tsteep.hessian, jsteep.hessian_oracle, jsteep.hessian,
                 ("sd",), 1e-4),
+    "debayer": (tdeb.debayer, jdeb.debayer_oracle, jdeb.debayer,
+                ("bayer",), 1e-5),
+    "warp": (twarp.warp_affine, jwarp.warp_affine_oracle, jwarp.warp_affine,
+             ("img", "p"), 1e-5),
+    "warp_dse": (twarp.warp_affine, jwarp.warp_affine_oracle,
+                 jwarp.warp_affine, ("img", "p_dse"), 1e-5),
+    "change_det": (tcd.change_detection, jcd.change_detection_oracle,
+                   jcd.change_detection, ("img", "mu", "var", "w"), 1e-5),
 }
 
 
@@ -68,12 +110,16 @@ def _check(got, want, tol):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert tuple(g.shape) == tuple(w.shape)
-        _close(g.numpy(), np.asarray(w), tol)
+        if g.dtype == torch.bool:          # a mask: exactly equal
+            assert np.asarray(w).dtype == np.bool_
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        else:
+            _close(g.numpy(), np.asarray(w), tol)
 
 
 @pytest.mark.parametrize("name,ports,unrolls", [
     (n, p, u) for n in CASES
-    for p, u in (SD_KNOBS if n == "steep_descent" else KNOBS)])
+    for p, u in (SD_KNOBS if n in SMALL_KNOB_STAGES else KNOBS)])
 def test_port_op_matches_jax_oracle_at_tile(name, ports, unrolls):
     op, oracle, _, args, tol = CASES[name]
     x = _inputs((TILE, TILE))
@@ -83,16 +129,67 @@ def test_port_op_matches_jax_oracle_at_tile(name, ports, unrolls):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(set(CASES) - {"warp_dse"}))
 def test_port_op_matches_jax_pallas_interpret(name):
     """The JAX Pallas kernel, run in interpret mode on the CPU, at a
-    small shape with a knob point that splits both axes."""
+    small shape with a knob point that splits both axes.  The warp runs
+    at the small-shear p only: at the DSE's p some source coordinates
+    are whole numbers, and the jitted JAX wrapper, which contracts the
+    address arithmetic into FMAs, picks another floor() cell there than
+    the JAX package's own plain version (the port follows the plain
+    version, held against it at the DSE's p above)."""
     op, _, pallas_op, args, tol = CASES[name]
     x = _inputs((32, 64), seed=11)
     got = op(*(torch.from_numpy(x[a]) for a in args), ports=2, unrolls=8)
     want = pallas_op(*(jnp.asarray(x[a]) for a in args), ports=2,
                      unrolls=8, interpret=True)
     _check(got, want, tol)
+
+
+def test_debayer_odd_block_matches_jax_oracle():
+    """Blocks of 5 rows do not align to the 2x2 Bayer quad: the parity
+    comes from global coordinates."""
+    bayer = _inputs((30, 64), seed=13)["bayer"]
+    got = tdeb.debayer(torch.from_numpy(bayer), ports=2, unrolls=5)
+    _check(got, jdeb.debayer_oracle(jnp.asarray(bayer)), 1e-5)
+
+
+@pytest.mark.slow
+def test_debayer_odd_block_matches_jax_pallas_interpret():
+    bayer = _inputs((30, 64), seed=13)["bayer"]
+    got = tdeb.debayer(torch.from_numpy(bayer), ports=2, unrolls=5)
+    _check(got, jdeb.debayer(jnp.asarray(bayer), ports=2, unrolls=5,
+                             interpret=True), 1e-5)
+
+
+def test_debayer_casts_an_integer_mosaic_to_float32():
+    raw = (_inputs((32, 32))["bayer"]).astype(np.uint16).astype(np.int32)
+    got = tdeb.debayer(torch.from_numpy(raw), ports=2, unrolls=4)
+    assert got.dtype == torch.float32
+    _check(got, jdeb.debayer_oracle(jnp.asarray(raw)), 1e-5)
+
+
+def test_change_detection_mask_has_both_outcomes():
+    """The parity inputs reach both sides of every discrete choice: a
+    matched pixel, an unmatched one, and a low-weight match."""
+    x = _inputs((TILE, TILE))
+    mask, *_ = tcd.change_detection(
+        *(torch.from_numpy(x[a]) for a in ("img", "mu", "var", "w")),
+        ports=4, unrolls=8)
+    share = float(mask.float().mean())
+    assert 0.05 < share < 0.95
+
+
+def test_parity_cases_cover_the_reference_stages():
+    """``wami_cuda_parity_cases`` lists the reference's seven stage
+    kernels, in its order, and each op agrees with its plain version."""
+    from repro.apps.wami.pallas import wami_parity_cases
+    from repro_torch.apps.wami.cuda import wami_cuda_parity_cases
+    cases = wami_cuda_parity_cases(32, device="cpu")
+    assert [c[0] for c in cases] == [c[0] for c in wami_parity_cases(32)]
+    for name, op, oracle, args in cases:
+        _check(op(*args, ports=2, unrolls=4), tuple(
+            a.numpy() for a in _flat(oracle(*args))), 1e-5)
 
 
 COST_MODELS = {
@@ -104,6 +201,12 @@ COST_MODELS = {
                       (tsteep.grid_steps, jsteep.grid_steps)),
     "hessian": ((tsteep.hessian_vmem_bytes, jsteep.hessian_vmem_bytes),
                 (tsteep.grid_steps, jsteep.grid_steps)),
+    "debayer": ((tdeb.vmem_bytes, jdeb.vmem_bytes),
+                (tdeb.grid_steps, jdeb.grid_steps)),
+    "warp": ((twarp.vmem_bytes, jwarp.vmem_bytes),
+             (twarp.grid_steps, jwarp.grid_steps)),
+    "change_det": ((tcd.vmem_bytes, jcd.vmem_bytes),
+                   (tcd.grid_steps, jcd.grid_steps)),
 }
 
 
@@ -123,15 +226,20 @@ def test_cost_models_equal_reference_over_table1(name):
 
 def test_cpu_tensors_never_launch_a_kernel():
     kernels = (tgray.grayscale_kernel, tgrad.gradient_kernel,
-               tsteep.steepest_descent_kernel, tsteep.hessian_kernel)
+               tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
+               tdeb.debayer_kernel, twarp.warp_kernel,
+               tcd.change_det_kernel)
     before = [k.launches for k in kernels]
-    x = _inputs((32, 32))
-    tgray.grayscale(torch.from_numpy(x["rgb"]), ports=2, unrolls=4)
-    tgrad.gradient(torch.from_numpy(x["gray"]), ports=2, unrolls=4)
-    tsteep.steepest_descent(torch.from_numpy(x["gx"]),
-                            torch.from_numpy(x["gy"]), ports=2, unrolls=4)
-    tsteep.hessian(torch.from_numpy(x["sd"]), ports=2, unrolls=4)
-    assert [k.launches for k in kernels] == before == [0, 0, 0, 0]
+    x = {k: torch.from_numpy(v) for k, v in _inputs((32, 32)).items()}
+    tgray.grayscale(x["rgb"], ports=2, unrolls=4)
+    tgrad.gradient(x["gray"], ports=2, unrolls=4)
+    tsteep.steepest_descent(x["gx"], x["gy"], ports=2, unrolls=4)
+    tsteep.hessian(x["sd"], ports=2, unrolls=4)
+    tdeb.debayer(x["bayer"], ports=2, unrolls=4)
+    twarp.warp_affine(x["img"], x["p"], ports=2, unrolls=4)
+    tcd.change_detection(x["img"], x["mu"], x["var"], x["w"], ports=2,
+                         unrolls=4)
+    assert [k.launches for k in kernels] == before == [0] * 7
 
 
 @pytest.mark.parametrize("ports,unrolls", [(3, 4), (2, 5), (0, 4)])
@@ -152,7 +260,8 @@ def test_hessian_plain_version_is_symmetric_and_knob_free():
 
 @pytest.mark.parametrize("kernel", [
     tgray.grayscale_kernel, tgrad.gradient_kernel,
-    tsteep.steepest_descent_kernel, tsteep.hessian_kernel],
+    tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
+    tdeb.debayer_kernel, twarp.warp_kernel, tcd.change_det_kernel],
     ids=lambda k: k.symbol)
 def test_binding_matches_the_c_entry_point(kernel):
     """Each ctypes binding declares one argtype per parameter of its
