@@ -9,26 +9,37 @@ which fails the run on any error:
 
   1. device  — the card's name and power limit; build every kernel
      under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
-  2. parity  — every kernel against its plain PyTorch version on the
-     card, at tile 128 and at the 512x512 frame, over the stage's
+  2. parity  — every WAMI kernel against its plain PyTorch version on
+     the card, at tile 128 and at the 512x512 frame, over the stage's
      Table-1 knob points (tolerance max|d| / max(1, max|ref|): 1e-5,
      Hessian 1e-4; the change-detection mask exactly equal), debayer
      also on a 30x64 frame whose 5-row blocks do not align to the Bayer
      quad, warp also at the DSE's affine parameters (which clamp at the
-     border), and every stage of ``wami_cuda_parity_cases``;
+     border), and every stage of ``wami_cuda_parity_cases``; then, with
+     TF32 products off, flash attention at every knob point of the fleet
+     DSE, at tests/test_kernels.py's shapes in f32 and bf16, its window
+     and soft-cap cases and head dim 256 (max|d| < 2e-5 in f32, 2e-2 in
+     bf16), and the SSD scan at the fleet geometry (heads 1-8, chunks
+     8-64), tests/test_kernels.py's shapes and N 128 (max|d| < 1e-4);
   3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
      and at 64x64 against the same code on the CPU;
-  4. measured DSE — the main path: ``wami_cuda_session`` in record mode
-     (characterize, plan, map, with the seven kernels timed on the
-     card) and ``exhaustive_dse`` over the same oracle, launch counts
-     read around exactly that run; the recording is replayed and must
-     give the same front;
+  4. measured DSE — the main paths, each with its kernels' launch
+     counts zeroed just before and read just after: ``wami_cuda_session``
+     in record mode (characterize, plan, map, with the seven WAMI kernels
+     timed on the card) and ``exhaustive_dse`` over the same oracle; then
+     ``fleet_cuda_session`` and its exhaustive baseline over one
+     record-mode oracle (flash attention and the SSD scan timed).  Each
+     recording is replayed and must give the same front; the analytical
+     fleet drive on the H100 chip table follows;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
-     times), the per-call time a Python caller sees, and the least time
-     the card could take (bytes over 3.35 TB/s, float32 flops over
-     67 TFLOP/s: an H100 SXM's published peaks at its 700 W limit).
+     times), and the least time the card could take (bytes over
+     3.35 TB/s; flops over 67 TFLOP/s in float32, 989 TFLOP/s in bf16:
+     an H100 SXM's published peaks at its 700 W limit).  WAMI at tile
+     128 and 512x512 (with the per-call time a Python caller sees), the
+     fleet kernels at the DSE's geometry and at model width (a gemma2-9b
+     local layer, a mamba2-780m layer).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -376,10 +387,10 @@ def phase_dse(dev, table):
             "smem_budget": oracle.smem_budget}
 
 
-def _time_ms(dev, fn, launches=TIME_LAUNCHES):
+def _time_ms(dev, fn, launches=TIME_LAUNCHES, reps=TIME_REPS):
     """Device milliseconds per call, host issue time excluded."""
     from repro_torch.core.cuda_oracle import device_time_s
-    return device_time_s(fn, launches=launches, reps=TIME_REPS,
+    return device_time_s(fn, launches=launches, reps=reps,
                          device=dev) * 1e3
 
 
@@ -434,6 +445,370 @@ def phase_times(dev, inputs, table, ports=1, unrolls=8):
     return out
 
 
+# ----------------------------------------------------------------------
+# the fleet app: flash attention and the SSD scan
+# ----------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12        # bf16 dense, the tensor cores
+# tests/test_kernels.py's tolerances: max|d| absolute
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = 1e-4
+# one gemma2-9b local layer and one mamba2-780m layer at model width
+GEMMA_LAYER = dict(B=1, S=4096, H=16, K=8, d=256, window=4096,
+                   softcap=50.0, block_q=64, block_kv=32)
+MAMBA_LAYER = dict(Bz=1, S=4096, H=48, P=64, N=128, chunk=64)
+FLEET_KERNELS = (
+    dict(name="flash_attention", stage="flash_attention",
+         source="src/repro_torch/csrc/flash_attention.cu",
+         replaces="src/repro/kernels/flash_attention/kernel.py:107"),
+    dict(name="ssd_scan", stage="ssd_scan",
+         source="src/repro_torch/csrc/ssd_scan.cu",
+         replaces="src/repro/kernels/ssd_scan/kernel.py:91"),
+)
+
+
+def _flash_inputs(dev, B, Sq, Skv, H, K, d, dtype, seed):
+    """Standard-normal q (B, Sq, H, d), k and v (B, Skv, K, d) in
+    ``dtype``, from seeded numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32)).to(dev, dtype)
+                 for shape in ((B, Sq, H, d), (B, Skv, K, d),
+                               (B, Skv, K, d)))
+
+
+def _ssd_inputs(dev, Bz, S, H, P, N, seed):
+    """x, dt, A, B, C in tests/test_kernels.py's distributions, from
+    seeded numpy, float32."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((Bz, S, H, P)),
+            np.logaddexp(0.0, rng.standard_normal((Bz, S, H)) * 0.5),
+            -np.exp(rng.standard_normal((H,)) * 0.3),
+            rng.standard_normal((Bz, S, N)) * 0.3,
+            rng.standard_normal((Bz, S, N)) * 0.3)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in arrs)
+
+
+def _abs_err(what, got, want, tol):
+    """max|d| of a kernel's outputs against its plain version's, in
+    float64; raises at ``tol`` or beyond, or on a non-finite output."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        _require(g.shape == w.shape and g.dtype == w.dtype,
+                 (what, g.shape, w.shape, g.dtype, w.dtype))
+        _require(bool(torch.isfinite(g).all()), f"{what}: not finite")
+        d = float((g.double() - w.double()).abs().max())
+        if not d < tol:
+            raise RuntimeError(f"{what}: max|d|={d:.3g} >= {tol}")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_fleet_parity(dev):
+    """Flash attention and the SSD scan against their plain versions on
+    the card; returns the largest absolute error per kernel.  Every flash
+    case keeps each query row's diagonal in its window (q_offset =
+    Skv - Sq >= 0, window > 0 only with q_offset 0): a row masked
+    everywhere is NaN in the plain version and 0 in the kernel."""
+    import torch
+    from repro_torch.apps.fleet import (FLASH_S, SSD_S,
+                                        fleet_cuda_parity_cases)
+    from repro_torch.kernels.flash_attention import mha, mha_ref
+    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle
+    errs, points = {"flash_attention": 0.0, "ssd_scan": 0.0}, {}
+
+    def check(name, what, got, want, tol):
+        torch.cuda.synchronize(dev)
+        errs[name] = max(errs[name], _abs_err(what, got, want, tol))
+        points[name] = points.get(name, 0) + 1
+
+    def flash(what, q, k, v, **kw):
+        tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+        want = mha_ref(q, k, v, **kw)
+        check("flash_attention", what, mha(q, k, v, **kw), want, tol)
+
+    # the fleet DSE's geometry at every dividing knob point
+    _, op, ref, args = fleet_cuda_parity_cases(FLASH_S, dev)[0]
+    want = ref(*args)
+    for ports in (1, 2, 4):
+        for unrolls in (1, 2, 4, 8):
+            check("flash_attention", f"flash (ports {ports}, unrolls "
+                  f"{unrolls})", op(*args, ports=ports, unrolls=unrolls),
+                  want, FLASH_TOL["float32"])
+    # tests/test_kernels.py's shapes, f32 and bf16, q_offset = Skv - Sq
+    for B, Sq, Skv, H, K, d in ((1, 128, 128, 4, 4, 64),
+                                (2, 128, 128, 8, 2, 64),
+                                (1, 256, 256, 4, 2, 32),
+                                (1, 128, 256, 4, 2, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(dev, B, Sq, Skv, H, K, d, dtype, 7)
+            flash(f"flash {(B, Sq, Skv, H, K, d)} {dtype}", q, k, v,
+                  q_offset=Skv - Sq, block_q=64, block_kv=64)
+    # its window and soft-cap cases
+    q, k, v = _flash_inputs(dev, 1, 128, 128, 4, 2, 64, torch.float32, 8)
+    for window, softcap in ((64, 0.0), (0, 30.0), (32, 20.0)):
+        flash(f"flash window {window} softcap {softcap}", q, k, v,
+              window=window, softcap=softcap, block_q=64, block_kv=64)
+    # head dim 256 (gemma2-9b) at S 512, bf16
+    q, k, v = _flash_inputs(dev, 1, 512, 512, 16, 8, 256, torch.bfloat16, 9)
+    flash("flash d 256, S 512", q, k, v, window=256, softcap=50.0,
+          block_q=64, block_kv=32)
+
+    # the SSD at the fleet geometry: heads 1-8, chunks 8-64
+    _, sop, sref, sargs = fleet_cuda_parity_cases(SSD_S, dev)[1]
+    x, dt, A, Bm, Cm = sargs
+    for heads in (1, 2, 4, 8):
+        lanes = (x[:, :, :heads].contiguous(), dt[:, :, :heads].contiguous(),
+                 A[:heads].contiguous(), Bm, Cm)
+        want = ssd_oracle(*lanes)
+        for chunk in (8, 16, 32, 64):
+            check("ssd_scan", f"ssd heads {heads} chunk {chunk}",
+                  ssd(*lanes, chunk=chunk), want, SSD_TOL)
+    check("ssd_scan", "ssd fleet parity case (unrolls 8)",
+          sop(*sargs, ports=1, unrolls=8), sref(*sargs), SSD_TOL)
+    # tests/test_kernels.py's shapes, and N 128 at chunk 64
+    for Bz, S, H, P, N, chunk in ((2, 128, 4, 32, 64, 32),
+                                  (1, 256, 2, 64, 128, 128),
+                                  (2, 64, 8, 16, 32, 64),
+                                  (1, 256, 4, 64, 128, 64)):
+        args = _ssd_inputs(dev, Bz, S, H, P, N, 7)
+        check("ssd_scan", f"ssd {(Bz, S, H, P, N)} chunk {chunk}",
+              ssd(*args, chunk=chunk), ssd_oracle(*args), SSD_TOL)
+    for name in errs:
+        print(f"[parity] {name}: max|d| {errs[name]:.3g} over "
+              f"{points[name]} cases", flush=True)
+    return errs
+
+
+def phase_fleet_dse(dev):
+    """The fleet's main path: record-mode ``fleet_cuda_session`` and the
+    exhaustive baseline over one CudaOracle, launch counts zeroed just
+    before and read just after; the recording must replay to the same
+    front.  Then the analytical fleet drive on the H100 chip table."""
+    import torch
+    from repro_torch.apps.fleet import (fleet_cuda_oracle,
+                                        fleet_cuda_session,
+                                        fleet_knob_spaces, fleet_session)
+    from repro_torch.core import (MeasurementSet, MeasurementStore,
+                                  OracleLedger, exhaustive_dse)
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    counters = {"flash_attention": flash_attention_kernel,
+                "ssd_scan": ssd_scan_kernel}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet_cuda.json")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        oracle = fleet_cuda_oracle("record", store_path=path, device=dev)
+        session = fleet_cuda_session(oracle=oracle)
+        res = session.run()
+        spaces = fleet_knob_spaces()
+        exh_ledger = OracleLedger(oracle)
+        exh = exhaustive_dse(list(spaces), oracle, spaces, exh_ledger)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        oracle.flush()
+        rec = MeasurementStore.load(path)
+        replay = fleet_cuda_oracle(
+            "replay", device=dev, measurements=MeasurementSet.from_store(
+                MeasurementStore.load(path), tile=0))
+        res2 = fleet_cuda_session(oracle=replay).run()
+    front = res.pareto()
+    failed, exh_failed = dict(session.ledger.failed), dict(exh_ledger.failed)
+    print(f"[fleet-dse] shared-memory budget {oracle.smem_budget} B, "
+          f"{wall:.2f} s; component, cosmos, failed, exhaustive, failed",
+          flush=True)
+    for name in spaces:
+        bad = sorted((r.ports, r.unrolls) for r in exh_ledger.records
+                     if r.component == name and not r.feasible)
+        print(f"[fleet-dse] {name:<16}{res.invocations.get(name, 0):>6}"
+              f"{failed.get(name, 0):>6}{exh.invocations.get(name, 0):>6}"
+              f"{exh_failed.get(name, 0):>6}  infeasible (ports, unrolls): "
+              f"{bad}", flush=True)
+    print(f"[fleet-dse] total {res.total_invocations} against exhaustive "
+          f"{exh.total_invocations}; mapped points {len(res.mapped)}, front "
+          f"{len(front)}", flush=True)
+    print(f"[fleet-dse] launches in the drive: {launches}", flush=True)
+    walls = {}
+    for (comp, p, u), w in sorted(rec.entries.items()):
+        walls.setdefault(comp, {})[f"p{p}:u{u}"] = w
+    for comp, ws in walls.items():
+        vals = sorted(ws.values())
+        print(f"[fleet-dse] {comp}: {len(vals)} knob points timed, wall "
+              f"{vals[0] * 1e6:.2f}..{vals[-1] * 1e6:.2f} us per launch",
+              flush=True)
+    dead = [n for n, c in launches.items() if c <= 0]
+    _require(not dead, f"fleet kernels never launched on the main path: "
+                       f"{dead}")
+    _require(set(walls) == set(counters), sorted(walls))
+    _require(res.mapped and all(
+        math.isfinite(m.theta_actual) and m.theta_actual > 0
+        and math.isfinite(m.cost_actual) for m in res.mapped),
+        "a mapped fleet point is not finite")
+    _require(repr(res2.mapped) == repr(res.mapped),
+             "replaying the fleet recording changed the front")
+    print("[fleet-dse] replay of the recording reproduces the front",
+          flush=True)
+    ana = fleet_session().run()
+    _require(ana.mapped and all(math.isfinite(m.theta_actual)
+                                for m in ana.mapped), "analytical fleet")
+    print(f"[fleet-dse] analytical (H100 chip table): invocations "
+          f"{ana.invocations}, mapped {len(ana.mapped)}, front "
+          f"{len(ana.pareto())}", flush=True)
+    return {"launches": launches, "cosmos": res.invocations,
+            "exhaustive": exh.invocations, "cosmos_failed": failed,
+            "exhaustive_failed": exh_failed, "front": len(front),
+            "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
+            "analytical": {"invocations": ana.invocations,
+                           "mapped": len(ana.mapped),
+                           "front": len(ana.pareto())}}
+
+
+def _wall_ms(dev, fn, reps=2):
+    """Milliseconds per call with the host's issue time included: CUDA
+    events around one call, after a warm-up call; the best of ``reps``.
+    For the SSD's plain version, whose sequential loop launches
+    thousands of kernels a call, more than a spin can keep queued."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(reps):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _flash_work(B, Sq, Skv, H, K, d, esize, causal, window, q_offset):
+    """(bytes, flops) flash attention must move and do: q, k, v read and
+    o written once; 4 d flops per unmasked (row, key) pair per head."""
+    import torch
+    pos = torch.arange(Sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(pos, max=Skv - 1) if causal else torch.full_like(
+        pos, Skv - 1)
+    lo = (torch.clamp(pos - window + 1, min=0) if window > 0
+          else torch.zeros_like(pos))
+    pairs = int((hi - lo + 1).clamp(min=0).sum())
+    nbytes = esize * (2 * B * Sq * H * d + 2 * B * Skv * K * d)
+    return nbytes, 4 * d * pairs * B * H
+
+
+def _ssd_work(Bz, S, H, P, N, chunk):
+    """(bytes, flops) of the SSD scan: inputs read and outputs written
+    once; the chunked algorithm's products, C.B^T once per chunk and
+    batch (it does not depend on the head)."""
+    tri = chunk * (chunk + 1) // 2
+    nbytes = 4 * (2 * Bz * S * H * P + Bz * S * H + H + 2 * Bz * S * N
+                  + Bz * H * P * N)
+    flops = Bz * (S // chunk) * (tri * 2 * N + H * (tri * 2 * P
+                                                    + 4 * chunk * P * N))
+    return nbytes, flops
+
+
+def _bound(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_fleet_times(dev):
+    """Each fleet kernel, its plain version and (where one exists) one
+    PyTorch call computing the same function: at the DSE's geometry
+    (flash at ports 2, unrolls 8; SSD at ports 1, unrolls 8) and at
+    model width (a gemma2-9b local layer; a mamba2-780m layer)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.apps.fleet import FLASH_D, FLASH_HEADS, FLASH_S
+    from repro_torch.apps.fleet import SSD_N, SSD_P, SSD_S
+    from repro_torch.kernels.flash_attention import mha, mha_ref
+    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle
+    out = {}
+
+    def flash_row(label, B, S, H, K, d, dtype, block_q, block_kv,
+                  window=0, softcap=0.0, library=True, launches=20,
+                  reps=TIME_REPS):
+        q, k, v = _flash_inputs(dev, B, S, S, H, K, d, dtype, 5)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        ms = _time_ms(dev, lambda: mha(q, k, v, block_q=block_q,
+                                         block_kv=block_kv, **kw),
+                      launches, reps)
+        plain = _time_ms(dev, lambda: mha_ref(q, k, v, **kw),
+                          min(launches, TIME_LAUNCHES_LONG), reps)
+        lib = None
+        if library:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = _time_ms(dev, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), launches, reps)
+        err = _abs_err(f"flash {label}", mha(q, k, v, block_q=block_q,
+                                              block_kv=block_kv, **kw),
+                       mha_ref(q, k, v, **kw),
+                       FLASH_TOL[str(dtype).split(".")[-1]])
+        nbytes, flops = _flash_work(B, S, S, H, K, d, q.element_size(),
+                                    True, window, 0)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        bound, by = _bound(nbytes, flops, peak)
+        return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "flops": flops, "max_abs_err": err,
+                "blocks": [block_q, block_kv]}
+
+    def ssd_row(label, Bz, S, H, P, N, chunk, launches=20, reps=TIME_REPS):
+        args = _ssd_inputs(dev, Bz, S, H, P, N, 5)
+        ms = _time_ms(dev, lambda: ssd(*args, chunk=chunk), launches, reps)
+        plain = _wall_ms(dev, lambda: ssd_oracle(*args))
+        got, want = ssd(*args, chunk=chunk), ssd_oracle(*args)
+        torch.cuda.synchronize(dev)
+        # relative to max(1, max|ref|): the state sums 4096 steps here
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        err = _abs_err(f"ssd {label}", got, want, SSD_TOL * scale)
+        nbytes, flops = _ssd_work(Bz, S, H, P, N, chunk)
+        bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
+        return {"ms": ms, "plain_ms": plain, "plain_host_bound": True,
+                "library_ms": None, "bound_ms": bound, "bound_by": by,
+                "bytes": nbytes, "flops": flops, "max_abs_err": err,
+                "chunk": chunk}
+
+    g, m = GEMMA_LAYER, MAMBA_LAYER
+    out["flash_attention"] = {
+        "dse": flash_row("DSE (ports 2, unrolls 8)", 1, FLASH_S,
+                         FLASH_HEADS, 1, FLASH_D, torch.float32,
+                         FLASH_S // 2, 16 * 8),
+        "model": flash_row("gemma2-9b local layer", g["B"], g["S"],
+                           g["H"], g["K"], g["d"], torch.bfloat16,
+                           g["block_q"], g["block_kv"], window=g["window"],
+                           softcap=g["softcap"], library=False, launches=3,
+                           reps=3)}
+    out["ssd_scan"] = {
+        "dse": ssd_row("DSE (ports 1, unrolls 8)", 1, SSD_S, 1, SSD_P,
+                       SSD_N, 8 * 8),
+        "model": ssd_row("mamba2-780m layer", m["Bz"], m["S"], m["H"],
+                         m["P"], m["N"], m["chunk"], launches=3, reps=3)}
+    for name, rows in out.items():
+        for where, r in rows.items():
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+            print(f"[times] {name} {where}: kernel {r['ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, library {lib} ms, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}; "
+                  f"{r['bytes']} B, {r['flops']} flop), max|d| "
+                  f"{r['max_abs_err']:.3g}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -468,9 +843,15 @@ def main(argv=None) -> int:
 
     inputs, table = kernel_table()
     errs = phase_parity(dev, inputs, table)
+    _require(not torch.backends.cuda.matmul.allow_tf32,
+             "TF32 products are on: the plain versions' einsums would "
+             "not be float32")
+    errs.update(phase_fleet_parity(dev))
     functional = phase_functional(dev)
     dse = phase_dse(dev, table)
+    fleet_dse = phase_fleet_dse(dev)
     times = phase_times(dev, inputs, table)
+    fleet_times = phase_fleet_times(dev)
 
     kernels = []
     for k in table:
@@ -489,13 +870,30 @@ def main(argv=None) -> int:
                          ("ms", "call_ms", "plain_ms", "bound_ms",
                           "library_ms")},
         })
+    for k in FLEET_KERNELS:
+        t = fleet_times[k["name"]]["dse"]
+        kernels.append({
+            "name": k["name"], "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": fleet_dse["launches"][k["name"]],
+            "max_abs_err": errs[k["name"]],
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            "shape": "fleet DSE", "knobs": ({"ports": 2, "unrolls": 8}
+                                            if k["name"] == "flash_attention"
+                                            else {"ports": 1, "unrolls": 8}),
+            "model_width": {key: fleet_times[k["name"]]["model"][key] for
+                            key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err")},
+        })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": kernels,
                        "functional": functional, "dse": dse,
-                       "times": times}, f, indent=1)
+                       "fleet_dse": fleet_dse, "times": times,
+                       "fleet_times": fleet_times}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

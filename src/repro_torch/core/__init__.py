@@ -22,6 +22,10 @@ synthesis oracle:
   * :mod:`repro_torch.core.cuda_oracle` — the measured backend:
     knob-parameterized CUDA kernels timed on the card per point, with
     record/replay
+  * :mod:`repro_torch.core.xlatool` — the analytical fleet backend:
+    roofline prices of fleet shares on the chip table
+    (:mod:`repro_torch.core.chips`), footprints from
+    :mod:`repro_torch.core.autotune`
 """
 
 from .characterize import CharacterizationResult, characterize_component, spans

@@ -8,9 +8,9 @@
 // nothing, and returns cudaGetLastError().
 #pragma once
 
-#include <cuda_runtime.h>
+#include "kernel_export.cuh"
 
-#define WAMI_EXPORT extern "C" __attribute__((visibility("default")))
+#define WAMI_EXPORT KERNEL_EXPORT
 
 // threads of an elementwise CTA: the tile's pixel count rounded up to a
 // whole warp, at most 256
@@ -26,8 +26,3 @@ struct WamiTile {
         : row0(blockIdx.x * bh_), col0(blockIdx.y * bw_), bh(bh_), bw(bw_) {}
     __device__ int pixels() const { return bh * bw; }
 };
-
-// each library exports the message of a cudaError_t for its wrapper
-WAMI_EXPORT const char* wami_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "CudaKernel",
            "build_all", "load_library", "require_cuda_f32",
-           "current_stream"]
+           "require_cuda_tensor", "smem_optin", "current_stream"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every library under csrc/, one per kernel package
 SOURCES = ("wami_debayer", "wami_grayscale", "wami_gradient", "wami_steep",
-           "wami_warp", "wami_change_det")
-_HEADERS = ("wami_common.cuh",)
+           "wami_warp", "wami_change_det", "flash_attention", "ssd_scan")
+_HEADERS = ("kernel_export.cuh", "wami_common.cuh")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,15 +99,34 @@ def build_all(names: Sequence[str] = SOURCES) -> List[str]:
 def require_cuda_f32(name: str, t, shape: Sequence[int]) -> None:
     """Validate a kernel argument before its pointer is passed: a
     contiguous float32 CUDA tensor of ``shape``."""
+    require_cuda_tensor(name, t, shape, (torch.float32,))
+
+
+def require_cuda_tensor(name: str, t, shape: Sequence[int],
+                        dtypes: Sequence[torch.dtype],
+                        device=None) -> None:
+    """A contiguous CUDA tensor of ``shape`` and one of ``dtypes``, on
+    ``device`` when one is given; raises ``ValueError`` otherwise."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}"
+                         f", got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def smem_optin(device) -> int:
+    """The opt-in shared memory per block of ``device``'s card, in bytes
+    (232,448 on an H100): the most a kernel may stage."""
+    return int(torch.cuda.get_device_properties(device)
+               .shared_memory_per_block_optin)
 
 
 def current_stream(device) -> int:
@@ -125,8 +144,8 @@ def load_library(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 _finish_build(*_start_build(name))
             lib = _libs[name] = ctypes.CDLL(path)
-            lib.wami_error_string.argtypes = [ctypes.c_int]
-            lib.wami_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
         return lib
 
 
@@ -135,9 +154,10 @@ class CudaKernel:
 
     The entry point launches on the stream it is given and returns
     ``cudaGetLastError()``; :meth:`launch` raises on a non-zero code and
-    otherwise adds one to ``launches``.  Arguments are the Python ints
+    otherwise adds one to ``launches``.  Arguments are the Python values
     of ``argtypes``: ``ctypes.c_void_p`` for device pointers and the
-    stream, ``ctypes.c_int`` for sizes and knobs.
+    stream, ``ctypes.c_int`` for sizes and knobs, ``ctypes.c_float`` for
+    float scalars.
     """
 
     def __init__(self, library: str, symbol: str,
@@ -161,7 +181,7 @@ class CudaKernel:
     def launch(self, *args) -> None:
         code = self._entry()(*args)
         if code != 0:
-            msg = self._lib.wami_error_string(code).decode()
+            msg = self._lib.kernel_error_string(code).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: "
                                f"cudaError {code} ({msg})")
         with self._count_lock:

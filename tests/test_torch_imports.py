@@ -31,4 +31,8 @@ def test_port_imports_neither_jax_nor_repro():
     # every submodule was walked and imported, the kernels' included
     assert "repro_torch.core.cuda_oracle" in got["modules"]
     assert "repro_torch.kernels.wami_steep.kernel" in got["modules"]
+    assert "repro_torch.kernels.flash_attention.kernel" in got["modules"]
+    assert "repro_torch.kernels.ssd_scan.kernel" in got["modules"]
+    assert "repro_torch.apps.fleet.pipeline" in got["modules"]
+    assert "repro_torch.core.xlatool" in got["modules"]
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
