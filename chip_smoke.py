@@ -11,8 +11,10 @@ which fails the run on any error:
      under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. parity  — every WAMI kernel against its plain PyTorch version on
      the card, at tile 128 and at the 512x512 frame, over the stage's
-     Table-1 knob points (tolerance max|d| / max(1, max|ref|): 1e-5,
-     Hessian 1e-4; the change-detection mask exactly equal), debayer
+     Table-1 knob points (the Hessian over every dividing point of its
+     Table-1 grid, and the same bits on three runs; tolerance max|d| /
+     max(1, max|ref|): 1e-5, Hessian 1e-4; the change-detection mask
+     exactly equal), debayer
      also on a 30x64 frame whose 5-row blocks do not align to the Bayer
      quad, warp also at the DSE's affine parameters (which clamp at the
      border), and every stage of ``wami_cuda_parity_cases``; then, with
@@ -20,7 +22,9 @@ which fails the run on any error:
      DSE, at tests/test_kernels.py's shapes in f32 and bf16, its window
      and soft-cap cases and head dim 256 (max|d| < 2e-5 in f32, 2e-2 in
      bf16), and the SSD scan at the fleet geometry (heads 1-8, chunks
-     8-64), tests/test_kernels.py's shapes and N 128 (max|d| < 1e-4);
+     8-64: chunk 8 carries the state across 32 chunks),
+     tests/test_kernels.py's shapes and N 128 (max|d| < 1e-4; the
+     mamba2-780m layer in phase 5, relative to max(1, max|ref|));
   3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
      and at 64x64 against the same code on the CPU;
   4. measured DSE — the main paths, each with its kernels' launch
@@ -36,10 +40,12 @@ which fails the run on any error:
      CUDA events with the host's issue time kept out (as the oracle
      times), and the least time the card could take (bytes over
      3.35 TB/s; flops over 67 TFLOP/s in float32, 989 TFLOP/s in bf16:
-     an H100 SXM's published peaks at its 700 W limit).  WAMI at tile
-     128 and 512x512 (with the per-call time a Python caller sees), the
-     fleet kernels at the DSE's geometry and at model width (a gemma2-9b
-     local layer, a mamba2-780m layer).
+     an H100 SXM's published peaks at its 700 W limit; for the SSD, whose
+     products run on the tensor cores as three TF32 products each, also
+     at 495 TFLOP/s of TF32, and its time per pass by torch.profiler).
+     WAMI at tile 128 and 512x512 (with the per-call time a Python
+     caller sees), the fleet kernels at the DSE's geometry and at model
+     width (a gemma2-9b local layer, a mamba2-780m layer).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -53,6 +59,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -134,6 +141,10 @@ def kernel_table():
 
     knobs = table1(16, 32)
     sd_knobs = table1(8, 16)
+    # every point of the Hessian's Table-1 grid that divides the tile:
+    # each point its DSE can time
+    hess_knobs = [(p, u) for p in (1, 2, 4, 8, 16) for u in range(1, 33)
+                  if TILE % u == 0]
     return inputs, [
         dict(name="wami_debayer", stage="debayer", op=D.debayer,
              ref=D.debayer_oracle, counter=D.debayer_kernel,
@@ -166,7 +177,7 @@ def kernel_table():
              replaces="src/repro/kernels/wami_steep/kernel.py:56"),
         dict(name="wami_hessian", stage="hessian", op=S.hessian,
              ref=S.hessian_oracle, counter=S.hessian_kernel,
-             args=("sd",), knobs=knobs, tol=1e-4,
+             args=("sd",), knobs=hess_knobs, tol=1e-4,
              bytes_px=24, flops_px=42, bytes_fixed=36 * 4,
              library=lambda x: (x["sd"].reshape(-1, 6).T
                                 @ x["sd"].reshape(-1, 6)),
@@ -245,7 +256,8 @@ def phase_parity(dev, inputs, table):
                     k["tol"]))
                 points += 1
         if k["name"] == "wami_hessian":
-            # two passes, no float atomics: the same bits on every run
+            # a last-CTA sum in index order, no float atomics: the same
+            # bits on every run
             x = inputs(FRAME, dev, seed=4)
             runs = [k["op"](x["sd"], ports=4, unrolls=8) for _ in range(3)]
             _require(all(torch.equal(r, runs[0]) for r in runs),
@@ -449,6 +461,7 @@ def phase_times(dev, inputs, table, ports=1, unrolls=8):
 # the fleet app: flash attention and the SSD scan
 # ----------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12        # bf16 dense, the tensor cores
+TF32_FLOPS_PER_S = 495e12        # TF32 dense, the tensor cores
 # tests/test_kernels.py's tolerances: max|d| absolute
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = 1e-4
@@ -693,6 +706,27 @@ def _wall_ms(dev, fn, reps=2):
     return best
 
 
+def _pass_us(dev, fn, calls=5):
+    """Device microseconds per call of each kernel ``fn`` launches, by
+    name, from a ``torch.profiler`` trace of ``calls`` calls; {} where the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+            name = m.group(1) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    return out
+
+
 def _flash_work(B, Sq, Skv, H, K, d, esize, causal, window, q_offset):
     """(bytes, flops) flash attention must move and do: q, k, v read and
     o written once; 4 d flops per unmasked (row, key) pair per head."""
@@ -778,8 +812,12 @@ def phase_fleet_times(dev):
         err = _abs_err(f"ssd {label}", got, want, SSD_TOL * scale)
         nbytes, flops = _ssd_work(Bz, S, H, P, N, chunk)
         bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
+        # the kernel's rate: three TF32 tensor-core products per product
+        bound_tc, _ = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        passes = _pass_us(dev, lambda: ssd(*args, chunk=chunk))
         return {"ms": ms, "plain_ms": plain, "plain_host_bound": True,
                 "library_ms": None, "bound_ms": bound, "bound_by": by,
+                "bound_3xtf32_ms": bound_tc, "passes_us": passes,
                 "bytes": nbytes, "flops": flops, "max_abs_err": err,
                 "chunk": chunk}
 
@@ -801,11 +839,19 @@ def phase_fleet_times(dev):
     for name, rows in out.items():
         for where, r in rows.items():
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+            tc = ("" if "bound_3xtf32_ms" not in r else
+                  f", {r['bound_3xtf32_ms']:.6f} ms at the 3xTF32 rate")
             print(f"[times] {name} {where}: kernel {r['ms']:.5f} ms, plain "
                   f"{r['plain_ms']:.5f} ms, library {lib} ms, bound "
                   f"{r['bound_ms']:.6f} ms ({r['bound_by']}; "
-                  f"{r['bytes']} B, {r['flops']} flop), max|d| "
+                  f"{r['bytes']} B, {r['flops']} flop{tc}), max|d| "
                   f"{r['max_abs_err']:.3g}", flush=True)
+            if "passes_us" in r:
+                per = ", ".join(f"{k} {v:.2f} us"
+                                for k, v in r["passes_us"].items())
+                print(f"[times] {name} {where} by pass (torch.profiler): "
+                      f"{per or 'no device time in the trace'}",
+                      flush=True)
     return out
 
 
@@ -884,7 +930,9 @@ def main(argv=None) -> int:
                                             else {"ports": 1, "unrolls": 8}),
             "model_width": {key: fleet_times[k["name"]]["model"][key] for
                             key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "max_abs_err")},
+                                    "library_ms", "max_abs_err",
+                                    "bound_3xtf32_ms")
+                            if key in fleet_times[k["name"]]["model"]},
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

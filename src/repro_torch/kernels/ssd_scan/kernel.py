@@ -1,10 +1,16 @@
-"""ctypes binding of ``csrc/ssd_scan.cu``: one launch per call, float32.
+"""ctypes binding of ``csrc/ssd_scan.cu``: one entry point per call (the
+chunk, state and output passes, issued in order on the current stream),
+float32.
 
-The kernel runs one CTA per (head, batch) and slice of the head dim P:
-:func:`ssd_p_split` splits P (exact, see the C source) while Bz * H
-alone would leave SMs idle.  A chunk whose staging exceeds the card's
-opt-in shared memory is refused here, before the launch
-(:func:`ssd_smem_bytes` is the C source's formula).
+The chunk and output passes run one CTA per (chunk, group of heads,
+slice of the head dim P, batch): :func:`ssd_heads_per_cta` groups heads
+(B and C, and C.B^T, are shared across heads) where the grid stays deep,
+and :func:`ssd_p_split` splits P (exact, see the C source) while the grid
+has fewer CTAs than the card has SMs, or while a CTA's staging exceeds
+the card's opt-in shared memory.  A chunk whose staging still exceeds it
+is refused here, before the launch (:func:`ssd_smem_bytes` is the C
+source's formula).  The chunk states go through a scratch buffer of
+:func:`ssd_scratch_floats` floats.
 """
 
 from __future__ import annotations
@@ -18,33 +24,72 @@ from ..build import (CudaKernel, current_stream, require_cuda_tensor,
                      smem_optin)
 
 __all__ = ["ssd_scan_kernel", "ssd_scan_cuda", "ssd_smem_bytes",
-           "ssd_p_split"]
+           "ssd_heads_per_cta", "ssd_p_split", "ssd_scratch_floats"]
 
 _F32 = (torch.float32,)
 _MIN_SLICE = 16          # the narrowest slice of P one CTA takes
+_WARPS = 8               # warps per CTA (kThreads / 32 in the C source)
+_GROUPS = (4, 2)         # heads a CTA may take, widest first
+_DEPTH = 4               # CTAs per SM a grouped grid keeps, at least
 
-# x, dt, A, B, C, y, h_final; Bz, S, H, P, N, chunk, p_split; stream
+# x, dt, A, B, C, y, h_final, scratch; Bz, S, H, P, N, chunk, p_split,
+# heads_per_cta; stream
 ssd_scan_kernel = CudaKernel(
     "ssd_scan", "ssd_scan_fwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
 
 
 def ssd_smem_bytes(chunk: int, p_slice: int, N: int) -> int:
-    """Shared memory one CTA stages: the x slice (chunk, p_slice), B and
-    C (chunk, N + 1), dt and cum (chunk), W (chunk, chunk) and the state
-    slice (p_slice, N + 1), all float32."""
-    return 4 * (chunk * p_slice + 2 * chunk * (N + 1) + 2 * chunk
-                + chunk * chunk + p_slice * (N + 1))
+    """Shared memory one CTA stages, float32: the larger of the chunk
+    pass (B and C (Qp, Np + 4), C.B^T (Qp, Qp + 4), the x slice
+    (Qp, Pp + 8), dt and cum (Qp), the scan's per-warp totals) and the
+    output pass (C, two state slices (Pp, Np + 4), dt, cum, totals); Qp is
+    the chunk rounded up to 16, Np is N rounded up to 8, Pp the slice
+    rounded up to 16.  It does not depend on the heads a CTA takes: they
+    are staged one after another."""
+    qp, np_, pp = (_round_up(chunk, 16), _round_up(N, 8),
+                   _round_up(p_slice, 16))
+    ld_bc = np_ + 4
+    chunk_pass = (2 * qp * ld_bc + qp * (qp + 4) + qp * (pp + 8) + 2 * qp
+                  + _WARPS)
+    output_pass = qp * ld_bc + 2 * pp * ld_bc + 2 * qp + _WARPS
+    return 4 * max(chunk_pass, output_pass)
 
 
-def ssd_p_split(Bz: int, H: int, P: int, sms: int) -> int:
-    """Slices of P per (head, batch): doubled while the grid has fewer
-    CTAs than the card has SMs and a slice stays 16 wide or more."""
+def ssd_heads_per_cta(Bz: int, H: int, n_chunks: int, sms: int) -> int:
+    """Heads one CTA takes: the widest of 4 and 2 that divides H and
+    leaves at least ``_DEPTH`` CTAs per SM, else 1."""
+    for hpc in _GROUPS:
+        if H % hpc == 0 and Bz * n_chunks * (H // hpc) >= _DEPTH * sms:
+            return hpc
+    return 1
+
+
+def ssd_p_split(Bz: int, H: int, P: int, n_chunks: int, sms: int, *,
+                chunk: int, N: int, smem_cap: int,
+                heads_per_cta: int = 1) -> int:
+    """Slices of P per (chunk, group of heads, batch): doubled while the
+    grid has fewer CTAs than the card has SMs, or the staging exceeds
+    ``smem_cap``, and a slice stays 16 wide or more."""
+    groups = H // heads_per_cta
     split = 1
-    while (Bz * H * split < sms and P % (2 * split) == 0
-           and P // (2 * split) >= _MIN_SLICE):
+    while ((Bz * groups * n_chunks * split < sms
+            or ssd_smem_bytes(chunk, P // split, N) > smem_cap)
+           and P % (2 * split) == 0 and P // (2 * split) >= _MIN_SLICE):
         split *= 2
     return split
+
+
+def ssd_scratch_floats(Bz: int, n_chunks: int, H: int, P: int,
+                       N: int) -> int:
+    """The chunk states (Bz, n_chunks, H, P, N), overwritten in place by
+    the states entering each chunk, then exp(cum_Q) per (Bz, n_chunks,
+    H)."""
+    return Bz * n_chunks * H * (P * N + 1)
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -63,18 +108,24 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     require_cuda_tensor("C", C, (Bz, S, N), _F32, dev)
     if chunk < 1 or S % chunk:
         raise ValueError(f"chunk {chunk} does not divide S={S}")
-    props = torch.cuda.get_device_properties(dev)
-    split = ssd_p_split(Bz, H, P, props.multi_processor_count)
-    smem, cap = ssd_smem_bytes(chunk, P // split, N), smem_optin(dev)
+    n_chunks = S // chunk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cap = smem_optin(dev)
+    hpc = ssd_heads_per_cta(Bz, H, n_chunks, sms)
+    split = ssd_p_split(Bz, H, P, n_chunks, sms, chunk=chunk, N=N,
+                        smem_cap=cap, heads_per_cta=hpc)
+    smem = ssd_smem_bytes(chunk, P // split, N)
     if smem > cap:
         raise ValueError(f"chunk {chunk} at P/{split}={P // split}, N={N} "
                          f"stages {smem} B of shared memory; the card "
                          f"allows {cap} B per block")
     y = torch.empty_like(x)
     h = torch.empty((Bz, H, P, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(ssd_scratch_floats(Bz, n_chunks, H, P, N),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ssd_scan_kernel.launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), h.data_ptr(), Bz, S, H, P, N, chunk,
-            split, current_stream(dev))
+            C.data_ptr(), y.data_ptr(), h.data_ptr(), scratch.data_ptr(),
+            Bz, S, H, P, N, chunk, split, hpc, current_stream(dev))
     return y, h

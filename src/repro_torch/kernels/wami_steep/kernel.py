@@ -1,15 +1,19 @@
 """ctypes bindings of ``csrc/wami_steep.cu``: steepest-descent images and
 the Gauss-Newton Hessian, on the knob grid of :mod:`..wami_common`.
 
-The Hessian is two launches behind one wrapper call: per-CTA partial
-sums into a scratch buffer allocated here, then one CTA that sums them
-in index order (deterministic, no float atomics).
+The Hessian is one launch: per-CTA partial sums into a scratch buffer,
+then the CTA that finishes last sums them in index order (deterministic,
+no float atomics).  The partials and the ticket counter that picks that
+CTA are cached per device (:func:`hessian_scratch`), so a call
+allocates nothing but its output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,17 +22,20 @@ from ..wami_common import (grid_steps_model, knob_blocks, launch_grid,
                            vmem_bytes_model)
 
 __all__ = ["steepest_descent_kernel", "hessian_kernel",
-           "steepest_descent_cuda", "hessian_cuda", "vmem_bytes",
-           "grid_steps", "hessian_vmem_bytes"]
+           "steepest_descent_cuda", "hessian_cuda", "HessianScratch",
+           "hessian_scratch", "vmem_bytes", "grid_steps",
+           "hessian_vmem_bytes"]
 
 _N_IN, _N_OUT = 2, 6      # steepest descent: gx, gy -> 6 sd planes
 
-# both entry points: three device pointers, H, W, ports, unrolls, stream
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# both entry points end with H, W, ports, unrolls and the stream
+_KNOB_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# gx, gy, sd
 steepest_descent_kernel = CudaKernel("wami_steep", "wami_steepest_descent",
-                                     _ARGS)
-hessian_kernel = CudaKernel("wami_steep", "wami_hessian", _ARGS)
+                                     [ctypes.c_void_p] * 3 + _KNOB_ARGS)
+# sd, partials, ticket, out
+hessian_kernel = CudaKernel("wami_steep", "wami_hessian",
+                            [ctypes.c_void_p] * 4 + _KNOB_ARGS)
 
 
 def steepest_descent_cuda(gx: torch.Tensor, gy: torch.Tensor, *,
@@ -46,19 +53,49 @@ def steepest_descent_cuda(gx: torch.Tensor, gy: torch.Tensor, *,
     return sd
 
 
+class HessianScratch:
+    """The Hessian's scratch per device: the partials, float32 with at
+    least as many rows of 36 as the largest grid asked for, and the
+    ticket counter, one int32 made zeroed, which the kernel leaves at 0.
+    Sharing one counter assumes the calls on a device run on one stream,
+    as the DSE makes them."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cache: Dict[torch.device,
+                          Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def get(self, device, blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(partials, ticket) on ``device`` for a grid of ``blocks`` CTAs;
+        the partials are made anew only when the grid outgrows them."""
+        dev = torch.device(device)
+        with self._lock:
+            partials, ticket = self._cache.get(dev, (None, None))
+            if ticket is None:
+                ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+            if partials is None or partials.shape[0] < blocks:
+                partials = torch.empty((blocks, 36), dtype=torch.float32,
+                                       device=dev)
+            self._cache[dev] = (partials, ticket)
+            return partials, ticket
+
+
+hessian_scratch = HessianScratch()
+
+
 def hessian_cuda(sd: torch.Tensor, *, ports: int = 1,
                  unrolls: int = 8) -> torch.Tensor:
-    """sd: (H, W, 6) float32 on the card -> Hessian (6, 6)."""
+    """sd: (H, W, 6) float32 on the card -> Hessian (6, 6), one launch
+    on the current stream."""
     H, W = sd.shape[0], sd.shape[1]
     require_cuda_f32("sd", sd, (H, W, 6))
     rows, cols = launch_grid(H, W, ports=ports, unrolls=unrolls)
-    partials = torch.empty((rows * cols, 36), dtype=sd.dtype,
-                           device=sd.device)
+    partials, ticket = hessian_scratch.get(sd.device, rows * cols)
     out = torch.empty((6, 6), dtype=sd.dtype, device=sd.device)
     with torch.cuda.device(sd.device):
         hessian_kernel.launch(sd.data_ptr(), partials.data_ptr(),
-                              out.data_ptr(), H, W, ports, unrolls,
-                              current_stream(sd.device))
+                              ticket.data_ptr(), out.data_ptr(), H, W,
+                              ports, unrolls, current_stream(sd.device))
     return out
 
 

@@ -9,6 +9,7 @@ the SSD scan's y and final state.
 """
 
 import ctypes
+import functools
 import os
 import re
 
@@ -25,8 +26,10 @@ from repro_torch.kernels.build import CSRC_DIR, SOURCES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_smem_bytes, mha,
                                                  mha_ref)
-from repro_torch.kernels.ssd_scan import (ssd, ssd_oracle, ssd_p_split,
-                                          ssd_scan_kernel, ssd_smem_bytes)
+from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref,
+                                          ssd_heads_per_cta, ssd_oracle,
+                                          ssd_p_split, ssd_scan_kernel,
+                                          ssd_scratch_floats, ssd_smem_bytes)
 
 FLASH_SHAPES = [
     (1, 128, 128, 4, 4, 64),       # MHA
@@ -125,6 +128,31 @@ def test_ssd_oracle_is_the_plain_version():
         assert torch.equal(a, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _fleet_ssd_lanes(heads):
+    """The fleet parity inputs (S 256, P 64, N 64) cut to ``heads`` head
+    lanes, as torch tensors, and the JAX oracle's (y, h_final) on them."""
+    _, _, _, args = TF.fleet_cuda_parity_cases(TF.SSD_S, device="cpu")[1]
+    x, dt, A, Bm, Cm = args
+    lanes = (x[:, :, :heads].contiguous(), dt[:, :, :heads].contiguous(),
+             A[:heads].contiguous(), Bm, Cm)
+    return lanes, j_ssd_oracle(*(jnp.asarray(a.numpy()) for a in lanes))
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64])
+def test_ssd_chunked_decomposition_matches_jax_oracle(chunk, heads):
+    """The CUDA kernel's three passes (chunk terms, sequential state
+    pass, output), in plain PyTorch, at every chunk and head count the
+    fleet DSE times: chunk 8 carries the state across 32 chunks."""
+    lanes, (jy, jh) = _fleet_ssd_lanes(heads)
+    y, h = ssd_chunked_ref(*lanes, chunk=chunk)
+    assert y.dtype == h.dtype == torch.float32
+    assert tuple(h.shape) == (1, heads, TF.SSD_P, TF.SSD_N)
+    assert _max_err(y, jy) < 1e-4
+    assert _max_err(h, jh) < 1e-4
+
+
 @pytest.mark.slow
 def test_flash_matches_jax_pallas_interpret_at_fleet_geometry():
     """The JAX Pallas kernel, run in interpret mode, at the fleet parity
@@ -145,6 +173,18 @@ def test_ssd_matches_jax_pallas_interpret_at_fleet_geometry():
     assert name == "ssd_scan"
     j = tuple(jnp.asarray(a.numpy()) for a in args)
     y, h = op(*args, ports=1, unrolls=4)
+    jy, jh = j_ssd(*j, chunk=32, use_pallas=True, interpret=True)
+    assert _max_err(y, jy) < 1e-4
+    assert _max_err(h, jh) < 1e-4
+
+
+@pytest.mark.slow
+def test_ssd_chunked_decomposition_matches_jax_pallas_interpret():
+    """The chunked passes against the JAX Pallas kernel in interpret mode
+    at one fleet point (S 128, 8 heads, chunk 32: unrolls 4)."""
+    _, _, _, args = TF.fleet_cuda_parity_cases(128, device="cpu")[1]
+    j = tuple(jnp.asarray(a.numpy()) for a in args)
+    y, h = ssd_chunked_ref(*args, chunk=32)
     jy, jh = j_ssd(*j, chunk=32, use_pallas=True, interpret=True)
     assert _max_err(y, jy) < 1e-4
     assert _max_err(h, jh) < 1e-4
@@ -173,6 +213,15 @@ def test_footprint_model_rules_out_two_flash_points_on_the_card():
                for p in (1, 2, 4) for u in range(1, 9)) == 197120
 
 
+def _ssd_staging(Bz, S, H, P, N, chunk):
+    """(p_split, shared-memory bytes) the SSD wrapper launches with on an
+    H100 (132 SMs, 232,448 B per block)."""
+    hpc = ssd_heads_per_cta(Bz, H, S // chunk, 132)
+    split = ssd_p_split(Bz, H, P, S // chunk, 132, chunk=chunk, N=N,
+                        smem_cap=SMEM_H100, heads_per_cta=hpc)
+    return split, ssd_smem_bytes(chunk, P // split, N)
+
+
 def test_kernels_stage_within_the_card_at_the_paths_shapes():
     """What the CUDA kernels stage in shared memory at every point the
     fleet DSE times and at the model-width blocks ``chip_smoke.py``
@@ -181,20 +230,53 @@ def test_kernels_stage_within_the_card_at_the_paths_shapes():
         for unrolls in (1, 2, 4, 8):
             assert flash_smem_bytes(64, 128 // ports,
                                     16 * unrolls) <= SMEM_H100
-            p_slice = 64 // ssd_p_split(1, ports, 64, 132)
-            assert ssd_smem_bytes(8 * unrolls, p_slice, 64) <= SMEM_H100
+            _, smem = _ssd_staging(1, TF.SSD_S, ports, TF.SSD_P, TF.SSD_N,
+                                   8 * unrolls)
+            assert smem <= SMEM_H100
     assert flash_smem_bytes(256, 64, 32) <= SMEM_H100        # gemma2-9b
     assert flash_smem_bytes(256, 128, 128) > SMEM_H100       # refused
-    assert ssd_smem_bytes(64, 64 // ssd_p_split(1, 48, 64, 132),
-                          128) <= SMEM_H100                  # mamba2-780m
-    assert ssd_smem_bytes(128, 64, 128) > SMEM_H100           # refused
+    # mamba2-780m: 64 chunks x 48 heads fill the card unsplit
+    assert _ssd_staging(1, 4096, 48, 64, 128, 64) == (1, 103968)
+    # chunk 128 at N 128 fits once P is split; chunk 256 cannot
+    assert _ssd_staging(1, 256, 2, 64, 128, 128)[1] <= SMEM_H100
+    assert ssd_smem_bytes(256, 16, 128) > SMEM_H100           # refused
 
 
 def test_ssd_p_split_fills_the_card_and_keeps_slices_wide():
-    assert ssd_p_split(1, 1, 64, 132) == 4       # 16-wide slices at most
-    assert ssd_p_split(1, 48, 64, 132) == 4      # 192 CTAs
-    assert ssd_p_split(2, 96, 64, 132) == 1      # the grid already fills
-    assert ssd_p_split(1, 4, 24, 132) == 1       # 12 wide is too narrow
+    """The chunk and output passes' grid: (chunks, heads x slices of P,
+    batch), P split while the grid has fewer CTAs than SMs or a slice
+    stages more than the card allows, never below 16 wide."""
+    split = functools.partial(ssd_p_split, chunk=64, N=64,
+                              smem_cap=SMEM_H100)
+    assert split(1, 1, 64, 4, 132) == 4      # 16-wide slices at most
+    assert split(1, 4, 64, 32, 132) == 2     # 128 CTAs -> 256
+    assert split(1, 48, 64, 64, 132) == 1    # 3,072 CTAs already
+    assert split(1, 4, 24, 1, 132) == 1      # 12 wide is too narrow
+    # a 64-wide slice of chunk 128 at N 128 stages 240,672 B
+    assert ssd_smem_bytes(128, 64, 128) == 240672 > SMEM_H100
+    assert ssd_p_split(1, 48, 64, 32, 132, chunk=128, N=128,
+                       smem_cap=SMEM_H100) == 2
+
+
+def test_ssd_groups_heads_only_where_the_grid_stays_deep():
+    """A CTA takes 4 or 2 heads (sharing B, C and C.B^T) where at least
+    four CTAs per SM remain: the mamba2-780m layer, not the DSE."""
+    assert ssd_heads_per_cta(1, 48, 64, 132) == 4     # 768 CTAs
+    assert ssd_heads_per_cta(1, 48, 32, 132) == 2     # chunk 128: 768
+    assert ssd_heads_per_cta(1, 6, 256, 132) == 2     # 6 % 4 != 0
+    for heads in (1, 2, 4, 8):
+        for chunk in (8, 16, 32, 64):
+            assert ssd_heads_per_cta(1, heads, 256 // chunk, 132) == 1
+    # grouped heads count once in the grid that P is split to fill
+    assert ssd_p_split(1, 8, 64, 16, 132, chunk=16, N=64,
+                       smem_cap=SMEM_H100, heads_per_cta=4) == 4
+
+
+def test_ssd_scratch_holds_every_chunk_state_and_decay():
+    """(Bz, n_chunks, H, P, N) chunk states, then (Bz, n_chunks, H)
+    decays: ~101 MB at the mamba2-780m layer."""
+    assert ssd_scratch_floats(2, 4, 3, 8, 16) == 2 * 4 * 3 * (8 * 16 + 1)
+    assert 4 * ssd_scratch_floats(1, 64, 48, 64, 128) == 100675584
 
 
 def test_cpu_tensors_never_launch_a_kernel():

@@ -258,6 +258,33 @@ def test_hessian_plain_version_is_symmetric_and_knob_free():
     _close(outs[0].numpy(), outs[0].numpy().T, 1e-4)
 
 
+def test_hessian_scratch_covers_every_table1_grid_and_grows():
+    """The Hessian's cached partials have a row per CTA of every grid
+    ``launch_grid`` gives over its Table-1 knobs, grow only when a grid
+    outgrows them, and keep one zeroed ticket counter."""
+    from repro_torch.kernels.wami_common import launch_grid
+    from repro_torch.kernels.wami_steep.kernel import HessianScratch
+    scratch = HessianScratch()
+    max_ports, max_unrolls = WAMI_KNOB_TABLE["hessian"]
+    most, ticket0 = 0, None
+    for n in (TILE, 512):
+        for ports in powers_of_two(1, max_ports):
+            for unrolls in range(1, max_unrolls + 1):
+                if n % unrolls:
+                    continue
+                rows, cols = launch_grid(n, n, ports=ports, unrolls=unrolls)
+                before = scratch.get("cpu", 0)[0]
+                partials, ticket = scratch.get("cpu", rows * cols)
+                assert partials.shape[1] == 36
+                assert partials.shape[0] >= rows * cols
+                assert (partials is before) == (rows * cols <= most)
+                most = max(most, rows * cols)
+                assert partials.shape[0] == most
+                ticket0 = ticket0 if ticket0 is not None else ticket
+                assert ticket is ticket0 and int(ticket) == 0
+    assert most == 512 * 16
+
+
 @pytest.mark.parametrize("kernel", [
     tgray.grayscale_kernel, tgrad.gradient_kernel,
     tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
