@@ -14,17 +14,21 @@ which fails the run on any error:
      Table-1 knob points (the Hessian over every dividing point of its
      Table-1 grid, and the same bits on three runs; tolerance max|d| /
      max(1, max|ref|): 1e-5, Hessian 1e-4; the change-detection mask
-     exactly equal), debayer
-     also on a 30x64 frame whose 5-row blocks do not align to the Bayer
-     quad, warp also at the DSE's affine parameters (which clamp at the
+     exactly equal), debayer also on a 30x64 frame whose 5-row blocks do
+     not align to the Bayer quad, change detection also on 30x66 and
+     32x72 frames (tiles off the 16-byte grid: its scalar head and tail),
+     warp also at the DSE's affine parameters (which clamp at the
      border), and every stage of ``wami_cuda_parity_cases``; then, with
      TF32 products off, flash attention at every knob point of the fleet
-     DSE, at tests/test_kernels.py's shapes in f32 and bf16, its window
-     and soft-cap cases and head dim 256 (max|d| < 2e-5 in f32, 2e-2 in
-     bf16), and the SSD scan at the fleet geometry (heads 1-8, chunks
-     8-64: chunk 8 carries the state across 32 chunks),
-     tests/test_kernels.py's shapes and N 128 (max|d| < 1e-4; the
-     mamba2-780m layer in phase 5, relative to max(1, max|ref|));
+     DSE in f32 (3xTF32 mma.sync) and bf16 (wgmma, TMA), at
+     tests/test_kernels.py's shapes in both, its window and soft-cap
+     cases and head dim 256 at the gemma blocks (max|d| < 2e-5 in f32,
+     2e-2 in bf16; bf16 also against ``flash_tiled_ref``, which has the
+     kernel's numerics with accurate exp and tanh), and the SSD scan at
+     the fleet geometry (heads 1-8, chunks 8-64: chunk 8 carries the
+     state across 32 chunks), tests/test_kernels.py's shapes and N 128
+     (max|d| < 1e-4; the mamba2-780m layer in phase 5, relative to
+     max(1, max|ref|));
   3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
      and at 64x64 against the same code on the CPU;
   4. measured DSE — the main paths, each with its kernels' launch
@@ -33,8 +37,10 @@ which fails the run on any error:
      timed on the card) and ``exhaustive_dse`` over the same oracle; then
      ``fleet_cuda_session`` and its exhaustive baseline over one
      record-mode oracle (flash attention and the SSD scan timed).  Each
-     recording is replayed and must give the same front; the analytical
-     fleet drive on the H100 chip table follows;
+     recording is replayed and must give the same front; the
+     change-detection walls per knob point print beside those of the
+     scalar kernel of commit 8a11b55; the analytical fleet drive on the
+     H100 chip table follows;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
@@ -44,8 +50,11 @@ which fails the run on any error:
      products run on the tensor cores as three TF32 products each, also
      at 495 TFLOP/s of TF32, and its time per pass by torch.profiler).
      WAMI at tile 128 and 512x512 (with the per-call time a Python
-     caller sees), the fleet kernels at the DSE's geometry and at model
-     width (a gemma2-9b local layer, a mamba2-780m layer).
+     caller sees), the fleet kernels at the DSE's geometry (flash: also
+     its bound at the 3xTF32 rate, and SDPA under each backend) and at
+     model width (a gemma2-9b local layer at each of GEMMA_BLOCKS, with
+     ``flex_attention`` under ``torch.compile`` as its yardstick; a
+     mamba2-780m layer).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -196,6 +205,11 @@ def kernel_table():
              op=CD.change_detection, ref=CD.change_detection_oracle,
              counter=CD.change_det_kernel, args=("gray", "mu", "var", "w"),
              knobs=sd_knobs, tol=1e-5, bytes_px=77, flops_px=86,
+             # runs of 4 pixels: W % 4 != 0 takes the scalar path
+             # throughout; 18- and 9-column tiles start off the 16-byte
+             # grid and end with a scalar tail
+             odd_frames=[((30, 66), [(11, 5), (2, 3), (1, 1)]),
+                         ((32, 72), [(4, 8), (8, 4), (4, 1)])],
              library=None, plain_launches=TIME_LAUNCHES_LONG,
              source="src/repro_torch/csrc/wami_change_det.cu",
              replaces="src/repro/kernels/wami_change_det/kernel.py:88"),
@@ -380,6 +394,13 @@ def phase_dse(dev, table):
         print(f"[dse] {comp}: {len(vals)} knob points timed, wall "
               f"{vals[0] * 1e6:.2f}..{vals[-1] * 1e6:.2f} us per launch",
               flush=True)
+    prev = PREV_CHANGE_DET_WALLS_US
+    print("[dse] change_det walls per knob point, us (this run | the "
+          "scalar design of commit 8a11b55, " + PREV_CARD + "): "
+          + ", ".join(f"{pt} {w * 1e6:.2f} | "
+                      + (f"{prev[pt]:.2f}" if pt in prev else "-")
+                      for pt, w in sorted(walls.get("change_det", {})
+                                          .items())), flush=True)
     dead = [n for n, c in launches.items() if c <= 0]
     _require(not dead, f"kernels never launched on the main path: {dead}")
     _require(set(walls) == {k["stage"] for k in table}, sorted(walls))
@@ -397,6 +418,27 @@ def phase_dse(dev, table):
             "exhaustive_failed": exh_failed, "front": len(front),
             "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
             "smem_budget": oracle.smem_budget}
+
+
+# The change-detection walls of the WAMI DSE's recording with the
+# scalar kernel of commit 8a11b55 (one pixel a thread, at most 256
+# threads a CTA), read by that commit's chip_smoke.py, in us per launch.
+PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PREV_CHANGE_DET_WALLS_US = {
+    "p1:u1": 3.157,
+    "p1:u2": 3.237,
+    "p1:u4": 4.267,
+    "p1:u8": 6.402,
+    "p2:u2": 3.050,
+    "p2:u4": 3.240,
+    "p2:u8": 4.269,
+    "p2:u16": 6.395,
+    "p4:u4": 3.070,
+    "p4:u8": 3.237,
+    "p4:u16": 4.320,
+    "p8:u8": 3.205,
+    "p8:u16": 3.384,
+}
 
 
 def _time_ms(dev, fn, launches=TIME_LAUNCHES, reps=TIME_REPS):
@@ -467,7 +509,10 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = 1e-4
 # one gemma2-9b local layer and one mamba2-780m layer at model width
 GEMMA_LAYER = dict(B=1, S=4096, H=16, K=8, d=256, window=4096,
-                   softcap=50.0, block_q=64, block_kv=32)
+                   softcap=50.0)
+# its (block_q, block_kv): the blocks the f32-staging kernel of commit
+# 8a11b55 ran at, then the larger ones the bf16 TMA ring allows
+GEMMA_BLOCKS = ((64, 32), (64, 64))
 MAMBA_LAYER = dict(Bz=1, S=4096, H=48, P=64, N=128, chunk=64)
 FLEET_KERNELS = (
     dict(name="flash_attention", stage="flash_attention",
@@ -533,7 +578,8 @@ def phase_fleet_parity(dev):
     import torch
     from repro_torch.apps.fleet import (FLASH_S, SSD_S,
                                         fleet_cuda_parity_cases)
-    from repro_torch.kernels.flash_attention import mha, mha_ref
+    from repro_torch.kernels.flash_attention import (flash_tiled_ref, mha,
+                                                     mha_ref)
     from repro_torch.kernels.ssd_scan import ssd, ssd_oracle
     errs, points = {"flash_attention": 0.0, "ssd_scan": 0.0}, {}
 
@@ -569,9 +615,35 @@ def phase_fleet_parity(dev):
     for window, softcap in ((64, 0.0), (0, 30.0), (32, 20.0)):
         flash(f"flash window {window} softcap {softcap}", q, k, v,
               window=window, softcap=softcap, block_q=64, block_kv=64)
-    # head dim 256 (gemma2-9b) at S 512, bf16
+    # the bf16 body (wgmma, TMA) at the DSE's geometry and knob points:
+    # block_q 32 pads the m64 tile, 128 takes two warpgroups
+    q, k, v = (t.to(torch.bfloat16) for t in args)
+    for ports in (1, 2, 4):
+        for unrolls in (1, 2, 4, 8):
+            flash(f"flash bf16 (ports {ports}, unrolls {unrolls})", q, k, v,
+                  block_q=FLASH_S // ports, block_kv=16 * unrolls)
+    q, k, v = _flash_inputs(dev, 1, 128, 128, 4, 2, 64, torch.bfloat16, 8)
+    for window, softcap in ((64, 0.0), (0, 30.0), (32, 20.0)):
+        flash(f"flash bf16 window {window} softcap {softcap}", q, k, v,
+              window=window, softcap=softcap, block_q=64, block_kv=64)
+    # head dim 256 (gemma2-9b) at S 512: bf16 at the model-width blocks,
+    # f32 at the blocks its staging allows
     q, k, v = _flash_inputs(dev, 1, 512, 512, 16, 8, 256, torch.bfloat16, 9)
-    flash("flash d 256, S 512", q, k, v, window=256, softcap=50.0,
+    for block_q, block_kv in GEMMA_BLOCKS:
+        flash(f"flash d 256, S 512, blocks {block_q} x {block_kv}", q, k, v,
+              window=256, softcap=50.0, block_q=block_q, block_kv=block_kv)
+    # against the rehearsal of its own numerics (bf16 P, accurate expf and
+    # tanhf): what exp via ex2.approx and tanh.approx.f32 add
+    kw = dict(window=256, softcap=50.0, block_q=GEMMA_BLOCKS[0][0],
+              block_kv=GEMMA_BLOCKS[0][1])
+    approx = _abs_err("flash d 256 against flash_tiled_ref",
+                      mha(q, k, v, **kw), flash_tiled_ref(q, k, v, **kw),
+                      FLASH_TOL["bfloat16"])
+    print(f"[parity] flash bf16 d 256 against flash_tiled_ref (accurate "
+          f"exp and tanh, the kernel's blocks): max|d| {approx:.3g}",
+          flush=True)
+    q, k, v = (t.float() for t in (q, k, v))
+    flash("flash d 256, S 512, f32", q, k, v, window=256, softcap=50.0,
           block_q=64, block_kv=32)
 
     # the SSD at the fleet geometry: heads 1-8, chunks 8-64
@@ -759,6 +831,69 @@ def _bound(nbytes, flops, peak):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _sdpa_backends(dev, q, k, v):
+    """Device ms of one SDPA call (causal, GQA) on the model layout's
+    q, k, v under each backend ``sdpa_kernel`` can force; a backend that
+    refuses the inputs gets the first line of its error."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {}
+    for b in (SDPBackend.MATH, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        def call(b=b):
+            with sdpa_kernel(b):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        try:
+            out[b.name] = _time_ms(dev, call)
+        except RuntimeError as exc:
+            out[b.name] = "refused: " + (str(exc).strip().splitlines()
+                                         or [""])[0][:160]
+    return out
+
+
+def _flex_attention(dev, q, k, v, *, window, softcap):
+    """The yardstick of the gemma row: ``flex_attention`` under
+    ``torch.compile`` with the soft-cap as ``score_mod``, the causal
+    window as a ``block_mask`` and ``enable_gqa``, timed and held
+    against the plain version (never called by the package).  Where it
+    does not build, the first line of the error."""
+    import torch
+    from repro_torch.kernels.flash_attention import mha_ref
+    call = ("torch.compile(flex_attention) (score_mod soft-cap, "
+            "causal/window block_mask, enable_gqa)")
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def soft_cap(score, b, h, q_idx, kv_idx):
+            return torch.tanh(score / softcap) * softcap
+
+        def causal_window(b, h, q_idx, kv_idx):
+            return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
+
+        S = q.shape[1]
+        mask = create_block_mask(causal_window, None, None, S, S,
+                                 device=dev)
+        flex = torch.compile(flex_attention)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def run():
+            return flex(qt, kt, vt, score_mod=soft_cap, block_mask=mask,
+                        enable_gqa=True)
+        got = run().transpose(1, 2)
+        torch.cuda.synchronize(dev)
+        want = mha_ref(q, k, v, causal=True, window=window, softcap=softcap)
+        err = float((got.double() - want.double()).abs().max())
+        return {"call": call, "ms": _time_ms(dev, run, 3, 3),
+                "max_abs_err": err}
+    except Exception as exc:    # the yardstick is optional; say why
+        return {"call": call, "error": (f"{type(exc).__name__}: {exc}"
+                                        .strip().splitlines() or [""])[0]
+                [:200]}
+
+
 def phase_fleet_times(dev):
     """Each fleet kernel, its plain version and (where one exists) one
     PyTorch call computing the same function: at the DSE's geometry
@@ -774,14 +909,15 @@ def phase_fleet_times(dev):
 
     def flash_row(label, B, S, H, K, d, dtype, block_q, block_kv,
                   window=0, softcap=0.0, library=True, launches=20,
-                  reps=TIME_REPS):
+                  reps=TIME_REPS, plain=None):
         q, k, v = _flash_inputs(dev, B, S, S, H, K, d, dtype, 5)
         kw = dict(causal=True, window=window, softcap=softcap)
         ms = _time_ms(dev, lambda: mha(q, k, v, block_q=block_q,
                                          block_kv=block_kv, **kw),
                       launches, reps)
-        plain = _time_ms(dev, lambda: mha_ref(q, k, v, **kw),
-                          min(launches, TIME_LAUNCHES_LONG), reps)
+        if plain is None:
+            plain = _time_ms(dev, lambda: mha_ref(q, k, v, **kw),
+                             min(launches, TIME_LAUNCHES_LONG), reps)
         lib = None
         if library:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -793,13 +929,19 @@ def phase_fleet_times(dev):
                        FLASH_TOL[str(dtype).split(".")[-1]])
         nbytes, flops = _flash_work(B, S, S, H, K, d, q.element_size(),
                                     True, window, 0)
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOPS_PER_S
-        bound, by = _bound(nbytes, flops, peak)
-        return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                "flops": flops, "max_abs_err": err,
-                "blocks": [block_q, block_kv]}
+        row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bytes": nbytes, "flops": flops, "max_abs_err": err,
+               "blocks": [block_q, block_kv]}
+        if dtype == torch.bfloat16:
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                      BF16_FLOPS_PER_S)
+        else:
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                      FP32_FLOPS_PER_S)
+            # the kernel's rate: three TF32 tensor-core products each
+            row["bound_3xtf32_ms"], _ = _bound(nbytes, 3 * flops,
+                                               TF32_FLOPS_PER_S)
+        return row, (q, k, v)
 
     def ssd_row(label, Bz, S, H, P, N, chunk, launches=20, reps=TIME_REPS):
         args = _ssd_inputs(dev, Bz, S, H, P, N, 5)
@@ -822,15 +964,29 @@ def phase_fleet_times(dev):
                 "chunk": chunk}
 
     g, m = GEMMA_LAYER, MAMBA_LAYER
-    out["flash_attention"] = {
-        "dse": flash_row("DSE (ports 2, unrolls 8)", 1, FLASH_S,
-                         FLASH_HEADS, 1, FLASH_D, torch.float32,
-                         FLASH_S // 2, 16 * 8),
-        "model": flash_row("gemma2-9b local layer", g["B"], g["S"],
-                           g["H"], g["K"], g["d"], torch.bfloat16,
-                           g["block_q"], g["block_kv"], window=g["window"],
-                           softcap=g["softcap"], library=False, launches=3,
-                           reps=3)}
+    dse, dse_qkv = flash_row("DSE (ports 2, unrolls 8)", 1, FLASH_S,
+                             FLASH_HEADS, 1, FLASH_D, torch.float32,
+                             FLASH_S // 2, 16 * 8)
+    dse["sdpa_backends_ms"] = _sdpa_backends(dev, *dse_qkv)
+    model, plain = {}, None
+    for block_q, block_kv in GEMMA_BLOCKS:
+        row, qkv = flash_row(
+            f"gemma2-9b local layer, blocks {block_q} x {block_kv}", g["B"],
+            g["S"], g["H"], g["K"], g["d"], torch.bfloat16, block_q,
+            block_kv, window=g["window"], softcap=g["softcap"],
+            library=False, launches=3, reps=3, plain=plain)
+        plain = row["plain_ms"]
+        model[f"{block_q}x{block_kv}"] = row
+    flex = _flex_attention(dev, *qkv, window=g["window"],
+                           softcap=g["softcap"])
+    for row in model.values():
+        row["library_ms"] = flex.get("ms")
+        row["library"] = flex
+    out["flash_attention"] = {"dse": dse, "model": model[
+        "{}x{}".format(*GEMMA_BLOCKS[0])]}
+    for key, row in model.items():
+        if key != "{}x{}".format(*GEMMA_BLOCKS[0]):
+            out["flash_attention"][f"model {key}"] = row
     out["ssd_scan"] = {
         "dse": ssd_row("DSE (ports 1, unrolls 8)", 1, SSD_S, 1, SSD_P,
                        SSD_N, 8 * 8),
@@ -846,6 +1002,17 @@ def phase_fleet_times(dev):
                   f"{r['bound_ms']:.6f} ms ({r['bound_by']}; "
                   f"{r['bytes']} B, {r['flops']} flop{tc}), max|d| "
                   f"{r['max_abs_err']:.3g}", flush=True)
+            if "sdpa_backends_ms" in r:
+                print(f"[times] {name} {where} SDPA by backend: "
+                      + ", ".join(f"{b} {v if isinstance(v, str) else f'{v:.5f} ms'}"
+                                  for b, v in r["sdpa_backends_ms"].items()),
+                      flush=True)
+            if "library" in r:
+                lib = r["library"]
+                print(f"[times] {name} {where} yardstick: {lib['call']}: "
+                      + (f"{lib['ms']:.5f} ms, max|d| {lib['max_abs_err']:.3g}"
+                         if "ms" in lib else f"not built: {lib['error']}"),
+                      flush=True)
             if "passes_us" in r:
                 per = ", ".join(f"{k} {v:.2f} us"
                                 for k, v in r["passes_us"].items())
@@ -863,6 +1030,12 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch is not beside this script; run "
               "it from a checkout of the repository", file=sys.stderr)
         return 2
+    # torch.compile (the flex_attention yardstick) builds inside the
+    # checkout, in one process
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(HERE, "build", sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -916,9 +1089,12 @@ def main(argv=None) -> int:
                          ("ms", "call_ms", "plain_ms", "bound_ms",
                           "library_ms")},
         })
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "bound_3xtf32_ms", "blocks")
     for k in FLEET_KERNELS:
-        t = fleet_times[k["name"]]["dse"]
-        kernels.append({
+        rows = fleet_times[k["name"]]
+        t = rows["dse"]
+        entry = {
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": fleet_dse["launches"][k["name"]],
@@ -928,12 +1104,15 @@ def main(argv=None) -> int:
             "shape": "fleet DSE", "knobs": ({"ports": 2, "unrolls": 8}
                                             if k["name"] == "flash_attention"
                                             else {"ports": 1, "unrolls": 8}),
-            "model_width": {key: fleet_times[k["name"]]["model"][key] for
-                            key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "max_abs_err",
-                                    "bound_3xtf32_ms")
-                            if key in fleet_times[k["name"]]["model"]},
-        })
+        }
+        if "bound_3xtf32_ms" in t:
+            entry["bound_3xtf32_ms"] = t["bound_3xtf32_ms"]
+        for where, r in rows.items():
+            if where.startswith("model"):
+                entry[where.replace(" ", "_").replace("model", "model_width",
+                                                      1)] = {
+                    key: r[key] for key in keep if key in r}
+        kernels.append(entry)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -42,13 +42,13 @@
 // ssd_smem_bytes).
 //
 // Products run on the tensor cores: mma.sync m16n8k8 in TF32 with the
-// three-term split (a_big b_big + a_big b_small + a_small b_big), which
-// keeps float32 accuracy; 16 x 32 warp tiles reuse each split A fragment
-// four times.  x, B, C and the states reach shared memory by cp.async
-// (the output pass fetches the next head's state slice while it works on
-// this one's), rows padded (B, C, G and the state by 4 floats, x by 8) so
-// a warp's fragment loads fall in distinct banks, and zero-padded to the
-// mma's 16 x 8 x 8 tile.
+// three-term split of csrc/tf32_mma.cuh (a_big b_big + a_big b_small +
+// a_small b_big), which keeps float32 accuracy; 16 x 32 warp tiles reuse
+// each split A fragment four times.  x, B, C and the states reach
+// shared memory by cp.async (the output pass fetches the next head's
+// state slice while it works on this one's), rows padded (B, C, G and
+// the state by 4 floats, x by 8) so a warp's fragment loads fall in
+// distinct banks, and zero-padded to the mma's 16 x 8 x 8 tile.
 //
 // Bound on an H100 SXM (published peaks, 700 W limit): for one
 // mamba2-780m layer (S 4096, H 48, P 64, N 128, chunk 64, f32) the inputs
@@ -62,6 +62,7 @@
 #include <cstdint>
 
 #include "kernel_export.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -103,32 +104,6 @@ struct Geometry {
 };
 
 // ---------------------------------------------------------------- copies
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-                 ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // rows x cols of a row-major global block (row stride ld floats) into
 // shared memory (row stride sld, a multiple of 4), zero-filled out to
 // rows_p x cols_p (cols_p a multiple of 4): 16-byte copies when every row
@@ -162,29 +137,6 @@ __device__ void stage(float* dst, int sld, const float* src, long long ld,
 }
 
 // --------------------------------------------------------- tensor cores
-// x = big + small: big is x cut to TF32 (its low 13 mantissa bits
-// cleared), small = x - big is exact in float32; the tensor core reads
-// both as TF32, dropping the low 13 bits of each, so big + small keeps
-// ~21 significant bits of x.  Two instructions, no cvt.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-    big = __float_as_uint(x) & 0xffffe000u;
-    small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d += a . b for one 16 x 8 x 8 tile (A row-major, B column-major)
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-          "r"(b[1]));
-}
-
 // an operand of D = A . B^T in shared memory: element (row, k) at
 // p[row * sr + k * sk]
 struct Operand {

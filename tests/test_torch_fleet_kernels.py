@@ -24,7 +24,8 @@ from repro.kernels.ssd_scan import ssd as j_ssd, ssd_oracle as j_ssd_oracle
 import repro_torch.apps.fleet.pipeline as TF
 from repro_torch.kernels.build import CSRC_DIR, SOURCES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
-                                                 flash_smem_bytes, mha,
+                                                 flash_smem_bytes,
+                                                 flash_tiled_ref, mha,
                                                  mha_ref)
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref,
                                           ssd_heads_per_cta, ssd_oracle,
@@ -109,6 +110,39 @@ def test_flash_plain_is_block_invariant():
             for bq, bk in ((64, 64), (128, 128), (64, 256), (256, 64))]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_flash_case():
+    """The fleet parity inputs (S 128, 2 query heads on one KV head,
+    d 64, float32) and the JAX oracle's causal attention on them."""
+    _, _, _, args = TF.fleet_cuda_parity_cases(TF.FLASH_S, device="cpu")[0]
+    return args, j_mha_ref(*(jnp.asarray(a.numpy()) for a in args),
+                           causal=True)
+
+
+@pytest.mark.parametrize("ports", [1, 2, 4])
+@pytest.mark.parametrize("unrolls", [1, 2, 4, 8])
+def test_flash_tiled_ref_matches_jax_oracle_at_every_dse_point(ports,
+                                                               unrolls):
+    """The CUDA kernel's float32 numerics (3xTF32 products, the online
+    softmax over its KV blocks), in plain PyTorch, at every knob point the
+    fleet DSE times: block_q = 128 / ports, block_kv = 16 * unrolls."""
+    args, want = _fleet_flash_case()
+    got = flash_tiled_ref(*args, causal=True, block_q=TF.FLASH_S // ports,
+                          block_kv=16 * unrolls)
+    assert got.dtype == torch.float32
+    assert _max_err(got, want) < TOL["float32"]
+
+
+def test_flash_tiled_ref_head_dim_256_window_softcap_bf16():
+    """The bf16 numerics (S scaled after the product, P rounded to bf16
+    before P . V) at gemma2-9b's head dim, window and soft-cap."""
+    t, j = _both(_flash_inputs(1, 128, 128, 4, 2, 256, seed=9), "bfloat16")
+    kw = dict(window=64, softcap=50.0)
+    got = flash_tiled_ref(*t, block_q=64, block_kv=32, **kw)
+    assert got.dtype == torch.bfloat16
+    assert _max_err(got, j_mha_ref(*j, **kw)) < TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("Bz,S,H,P,N,chunk", SSD_SHAPES)
@@ -225,16 +259,26 @@ def _ssd_staging(Bz, S, H, P, N, chunk):
 def test_kernels_stage_within_the_card_at_the_paths_shapes():
     """What the CUDA kernels stage in shared memory at every point the
     fleet DSE times and at the model-width blocks ``chip_smoke.py``
-    runs (the wrappers refuse anything larger)."""
+    runs (the wrappers refuse anything larger).  Flash attention stages
+    Q and two cp.async stages of K/V rows of d + 4 floats in float32, and
+    the 64-row-padded Q, a two-stage TMA ring of K/V tiles, 1,024 bytes
+    of alignment slack and the mbarriers in bfloat16."""
+    f32, bf16 = torch.float32, torch.bfloat16
     for ports in (1, 2, 4):
         for unrolls in (1, 2, 4, 8):
-            assert flash_smem_bytes(64, 128 // ports,
-                                    16 * unrolls) <= SMEM_H100
+            # (1, 4) and (1, 8) too: the footprint model rules them out,
+            # the parity checks run them
+            assert flash_smem_bytes(64, 128 // ports, 16 * unrolls,
+                                    f32) <= SMEM_H100
             _, smem = _ssd_staging(1, TF.SSD_S, ports, TF.SSD_P, TF.SSD_N,
                                    8 * unrolls)
             assert smem <= SMEM_H100
-    assert flash_smem_bytes(256, 64, 32) <= SMEM_H100        # gemma2-9b
-    assert flash_smem_bytes(256, 128, 128) > SMEM_H100       # refused
+    assert flash_smem_bytes(64, 128, 128, f32) == 174080       # (1, 8)
+    # gemma2-9b (d 256, bf16): the old blocks and the larger ones
+    assert flash_smem_bytes(256, 64, 32, bf16) == 99392
+    assert flash_smem_bytes(256, 64, 64, bf16) == 164928 <= SMEM_H100
+    assert flash_smem_bytes(256, 128, 128, bf16) > SMEM_H100  # refused
+    assert flash_smem_bytes(256, 64, 64, f32) > SMEM_H100     # refused
     # mamba2-780m: 64 chunks x 48 heads fill the card unsplit
     assert _ssd_staging(1, 4096, 48, 64, 128, 64) == (1, 103968)
     # chunk 128 at N 128 fits once P is split; chunk 256 cannot

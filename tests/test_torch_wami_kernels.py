@@ -285,6 +285,33 @@ def test_hessian_scratch_covers_every_table1_grid_and_grows():
     assert most == 512 * 16
 
 
+def test_change_det_launch_geometry_at_every_table1_point():
+    """A thread takes a run of 4 pixels, a CTA up to 1,024 threads: one
+    pass over every Table-1 tile of the 128 x 128 frame, at most two at
+    512 x 512 (ports 1, unrolls 16 has 2,048 runs); and a frame whose
+    width is not a multiple of 4 runs one scalar pixel a thread."""
+    from repro_torch.kernels.wami_change_det.kernel import \
+        change_det_geometry
+    max_ports, max_unrolls = WAMI_KNOB_TABLE["change_det"]
+    passes = {}
+    for n in (TILE, 512):
+        for ports in range(1, max_ports + 1):
+            for unrolls in range(1, max_unrolls + 1):
+                if n % ports or n % unrolls:
+                    continue
+                threads, p = change_det_geometry(n, n, ports=ports,
+                                                 unrolls=unrolls)
+                assert threads <= 1024 and threads % 32 == 0
+                runs = unrolls * (n // ports) // 4
+                assert threads == min(1024, -(-runs // 32) * 32)
+                passes[n] = max(passes.get(n, 0), p)
+    assert passes == {TILE: 1, 512: 2}
+    assert change_det_geometry(512, 512, ports=1, unrolls=16) == (1024, 2)
+    # W % 4 != 0: every pixel scalar; bw % 4 != 0: a scalar head or tail
+    assert change_det_geometry(30, 66, ports=11, unrolls=5) == (32, 1)
+    assert change_det_geometry(32, 72, ports=8, unrolls=4) == (32, 1)
+
+
 @pytest.mark.parametrize("kernel", [
     tgray.grayscale_kernel, tgrad.gradient_kernel,
     tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
