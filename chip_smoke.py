@@ -14,21 +14,27 @@ which fails the run on any error:
      Table-1 knob points (the Hessian over every dividing point of its
      Table-1 grid, and the same bits on three runs; tolerance max|d| /
      max(1, max|ref|): 1e-5, Hessian 1e-4; the change-detection mask
-     exactly equal), debayer also on a 30x64 frame whose 5-row blocks do
-     not align to the Bayer quad, change detection also on 30x66 and
-     32x72 frames (tiles off the 16-byte grid: its scalar head and tail),
+     exactly equal; debayer and gradient the same bits), debayer also on
+     a 30x64 frame whose 5-row blocks do not align to the Bayer quad,
+     debayer, gradient and change detection also on 30x66 (W % 4 != 0),
+     gradient and change detection on 32x72 and debayer on 64x72 frames
+     (tiles off the 16-byte grid: the scalar head and tail of the runs of
+     4),
      warp also at the DSE's affine parameters (which clamp at the
      border), and every stage of ``wami_cuda_parity_cases``; then, with
      TF32 products off, flash attention at every knob point of the fleet
      DSE in f32 (3xTF32 mma.sync) and bf16 (wgmma, TMA), at
      tests/test_kernels.py's shapes in both, its window and soft-cap
-     cases and head dim 256 at the gemma blocks (max|d| < 2e-5 in f32,
-     2e-2 in bf16; bf16 also against ``flash_tiled_ref``, which has the
-     kernel's numerics with accurate exp and tanh), and the SSD scan at
-     the fleet geometry (heads 1-8, chunks 8-64: chunk 8 carries the
-     state across 32 chunks), tests/test_kernels.py's shapes and N 128
-     (max|d| < 1e-4; the mamba2-780m layer in phase 5, relative to
-     max(1, max|ref|));
+     cases and head dim 256 at the gemma blocks, the reference's four
+     blockings (the spread across them printed), head dims 80, 128, 100,
+     50, 33, 20, 24, 200 and 250 (every general body), decode, and blocks
+     of 12 and 20 over 1,500 keys (max|d| < 2e-5 in f32, 2e-2 in bf16;
+     bf16 also against ``flash_tiled_ref``, which has the kernel's
+     numerics with accurate exp and tanh), and the
+     SSD scan at the fleet geometry (heads 1-8, chunks 8-64: chunk 8
+     carries the state across 32 chunks), tests/test_kernels.py's
+     shapes, N 128, and chunk 256 at N 128 and 64 (max|d| < 1e-4; the
+     mamba2-780m layer in phase 5, relative to max(1, max|ref|));
   3. functional — ``wami_app`` on three synthetic 512x512 Bayer frames,
      and at 64x64 against the same code on the CPU;
   4. measured DSE — the main paths, each with its kernels' launch
@@ -38,9 +44,9 @@ which fails the run on any error:
      ``fleet_cuda_session`` and its exhaustive baseline over one
      record-mode oracle (flash attention and the SSD scan timed).  Each
      recording is replayed and must give the same front; the
-     change-detection walls per knob point print beside those of the
-     scalar kernel of commit 8a11b55; the analytical fleet drive on the
-     H100 chip table follows;
+     change-detection, debayer and gradient walls per knob point print
+     beside those of their earlier kernels (``PREV_WALLS_US``); the
+     analytical fleet drive on the H100 chip table follows;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
@@ -54,7 +60,7 @@ which fails the run on any error:
      its bound at the 3xTF32 rate, and SDPA under each backend) and at
      model width (a gemma2-9b local layer at each of GEMMA_BLOCKS, with
      ``flex_attention`` under ``torch.compile`` as its yardstick; a
-     mamba2-780m layer).
+     mamba2-780m layer at chunk 64 and at its own chunk 256).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -157,9 +163,15 @@ def kernel_table():
     return inputs, [
         dict(name="wami_debayer", stage="debayer", op=D.debayer,
              ref=D.debayer_oracle, counter=D.debayer_kernel,
-             args=("bayer",), knobs=knobs, tol=1e-5,
-             # 30 x 64 at (2, 5): 5-row blocks off the 2 x 2 Bayer quad
-             odd_frames=[((30, 64), [(2, 5), (1, 5), (4, 3)])],
+             args=("bayer",), knobs=knobs, tol=1e-5, exact=True,
+             # 30 x 64 at (2, 5): 5-row blocks off the 2 x 2 Bayer quad;
+             # its four bodies: one pixel a thread (<= 256 pixels a
+             # tile), runs with a scalar head and tail (W % 4 != 0 at
+             # 30 x 66 (2, 15); 18- and 9-column tiles at 64 x 72), whole
+             # runs, and whole runs with staged stores (>= 1,024 pixels)
+             odd_frames=[((30, 64), [(2, 5), (1, 5), (4, 3)]),
+                         ((30, 66), [(11, 5), (2, 3), (1, 1), (2, 15)]),
+                         ((64, 72), [(4, 16), (8, 32), (4, 8)])],
              bytes_px=16, flops_px=12, library=None,
              plain_launches=TIME_LAUNCHES_LONG,
              source="src/repro_torch/csrc/wami_debayer.cu",
@@ -173,7 +185,12 @@ def kernel_table():
              replaces="src/repro/kernels/wami_grayscale/kernel.py:35"),
         dict(name="wami_gradient", stage="gradient", op=G.gradient,
              ref=G.gradient_oracle, counter=G.gradient_kernel,
-             args=("gray",), knobs=knobs, tol=1e-5,
+             args=("gray",), knobs=knobs, tol=1e-5, exact=True,
+             # runs of 4 pixels: 18- and 9-column tiles start off the
+             # 16-byte grid; W % 4 != 0 is scalar throughout
+             odd_frames=[((30, 64), [(2, 5), (1, 5), (4, 3)]),
+                         ((30, 66), [(11, 5), (2, 3), (1, 1)]),
+                         ((32, 72), [(4, 8), (8, 4), (4, 1)])],
              bytes_px=12, flops_px=4, library=None,
              source="src/repro_torch/csrc/wami_gradient.cu",
              replaces="src/repro/kernels/wami_gradient/kernel.py:56"),
@@ -269,6 +286,9 @@ def phase_parity(dev, inputs, table):
                     f"ports={ports}, unrolls={unrolls}", got, want,
                     k["tol"]))
                 points += 1
+        # the plain version's arithmetic in its order: the same bits
+        _require(not k.get("exact") or worst == 0.0,
+                 f"{k['name']}: max|d| {worst:.3g}, the same bits required")
         if k["name"] == "wami_hessian":
             # a last-CTA sum in index order, no float atomics: the same
             # bits on every run
@@ -394,13 +414,13 @@ def phase_dse(dev, table):
         print(f"[dse] {comp}: {len(vals)} knob points timed, wall "
               f"{vals[0] * 1e6:.2f}..{vals[-1] * 1e6:.2f} us per launch",
               flush=True)
-    prev = PREV_CHANGE_DET_WALLS_US
-    print("[dse] change_det walls per knob point, us (this run | the "
-          "scalar design of commit 8a11b55, " + PREV_CARD + "): "
-          + ", ".join(f"{pt} {w * 1e6:.2f} | "
-                      + (f"{prev[pt]:.2f}" if pt in prev else "-")
-                      for pt, w in sorted(walls.get("change_det", {})
-                                          .items())), flush=True)
+    for comp, (design, prev) in PREV_WALLS_US.items():
+        print(f"[dse] {comp} walls per knob point, us (this run | {design}, "
+              f"{PREV_CARD}): "
+              + ", ".join(f"{pt} {w * 1e6:.2f} | "
+                          + (f"{prev[pt]:.2f}" if pt in prev else "-")
+                          for pt, w in sorted(walls.get(comp, {}).items())),
+              flush=True)
     dead = [n for n, c in launches.items() if c <= 0]
     _require(not dead, f"kernels never launched on the main path: {dead}")
     _require(set(walls) == {k["stage"] for k in table}, sorted(walls))
@@ -420,24 +440,31 @@ def phase_dse(dev, table):
             "smem_budget": oracle.smem_budget}
 
 
-# The change-detection walls of the WAMI DSE's recording with the
-# scalar kernel of commit 8a11b55 (one pixel a thread, at most 256
-# threads a CTA), read by that commit's chip_smoke.py, in us per launch.
+# Walls of the WAMI DSE's recording with an earlier kernel, read by that
+# commit's chip_smoke.py (its --out JSON), in us per launch: change
+# detection's scalar kernel of commit 8a11b55 (one pixel a thread, at
+# most 256 threads a CTA), and debayer's and gradient's of commit
+# f6001f2 (the same design).
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-PREV_CHANGE_DET_WALLS_US = {
-    "p1:u1": 3.157,
-    "p1:u2": 3.237,
-    "p1:u4": 4.267,
-    "p1:u8": 6.402,
-    "p2:u2": 3.050,
-    "p2:u4": 3.240,
-    "p2:u8": 4.269,
-    "p2:u16": 6.395,
-    "p4:u4": 3.070,
-    "p4:u8": 3.237,
-    "p4:u16": 4.320,
-    "p8:u8": 3.205,
-    "p8:u16": 3.384,
+PREV_WALLS_US = {
+    "change_det": ("the scalar design of commit 8a11b55", {
+        "p1:u1": 3.157, "p1:u2": 3.237, "p1:u4": 4.267, "p1:u8": 6.402,
+        "p2:u2": 3.050, "p2:u4": 3.240, "p2:u8": 4.269, "p2:u16": 6.395,
+        "p4:u4": 3.070, "p4:u8": 3.237, "p4:u16": 4.320, "p8:u8": 3.205,
+        "p8:u16": 3.384}),
+    "debayer": ("the scalar design of commit f6001f2", {
+        "p1:u1": 2.490, "p1:u2": 2.410, "p1:u4": 2.814, "p1:u8": 3.397,
+        "p1:u16": 4.650, "p2:u2": 2.496, "p2:u4": 2.424, "p2:u8": 2.800,
+        "p2:u16": 3.386, "p2:u32": 4.611, "p4:u4": 2.459, "p4:u8": 2.389,
+        "p4:u16": 2.797, "p4:u32": 3.403, "p8:u8": 2.501, "p8:u16": 2.486,
+        "p8:u32": 2.798, "p16:u16": 2.579, "p16:u32": 2.621}),
+    "gradient": ("the scalar design of commit f6001f2", {
+        "p1:u1": 2.360, "p1:u2": 2.411, "p1:u4": 2.626, "p1:u8": 2.976,
+        "p1:u16": 3.957, "p1:u32": 5.702, "p2:u2": 2.360, "p2:u4": 2.384,
+        "p2:u8": 2.550, "p2:u16": 3.051, "p2:u32": 4.058, "p4:u4": 2.344,
+        "p4:u8": 2.397, "p4:u16": 2.552, "p4:u32": 3.030, "p8:u8": 2.357,
+        "p8:u16": 2.394, "p8:u32": 2.562, "p16:u16": 2.478,
+        "p16:u32": 2.397}),
 }
 
 
@@ -507,6 +534,8 @@ TF32_FLOPS_PER_S = 495e12        # TF32 dense, the tensor cores
 # tests/test_kernels.py's tolerances: max|d| absolute
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = 1e-4
+# tests/test_kernels.py::test_flash_block_size_invariance's blockings
+REF_BLOCKINGS = ((64, 64), (128, 128), (64, 256), (256, 64))
 # one gemma2-9b local layer and one mamba2-780m layer at model width
 GEMMA_LAYER = dict(B=1, S=4096, H=16, K=8, d=256, window=4096,
                    softcap=50.0)
@@ -514,6 +543,7 @@ GEMMA_LAYER = dict(B=1, S=4096, H=16, K=8, d=256, window=4096,
 # 8a11b55 ran at, then the larger ones the bf16 TMA ring allows
 GEMMA_BLOCKS = ((64, 32), (64, 64))
 MAMBA_LAYER = dict(Bz=1, S=4096, H=48, P=64, N=128, chunk=64)
+MAMBA_CHUNK = 256                # configs/mamba2_780m.py's ssm_chunk
 FLEET_KERNELS = (
     dict(name="flash_attention", stage="flash_attention",
          source="src/repro_torch/csrc/flash_attention.cu",
@@ -580,13 +610,16 @@ def phase_fleet_parity(dev):
                                         fleet_cuda_parity_cases)
     from repro_torch.kernels.flash_attention import (flash_tiled_ref, mha,
                                                      mha_ref)
-    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle
+    from repro_torch.kernels.build import smem_optin
+    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle, ssd_plan
     errs, points = {"flash_attention": 0.0, "ssd_scan": 0.0}, {}
 
     def check(name, what, got, want, tol):
         torch.cuda.synchronize(dev)
         errs[name] = max(errs[name], _abs_err(what, got, want, tol))
         points[name] = points.get(name, 0) + 1
+
+    BOTH = (torch.float32, torch.bfloat16)
 
     def flash(what, q, k, v, **kw):
         tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
@@ -646,6 +679,58 @@ def phase_fleet_parity(dev):
     flash("flash d 256, S 512, f32", q, k, v, window=256, softcap=50.0,
           block_q=64, block_kv=32)
 
+    # the reference's blockings (tests/test_kernels.py::
+    # test_flash_block_size_invariance): over-sized blocks run as
+    # sub-tiles; the spread across them beside the reference's 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(dev, 1, 256, 256, 4, 2, 64, dtype, 10)
+        outs = []
+        for block_q, block_kv in REF_BLOCKINGS:
+            outs.append(mha(q, k, v, block_q=block_q, block_kv=block_kv))
+            check("flash_attention", f"flash blocks {block_q} x {block_kv} "
+                  f"{dtype}", outs[-1], mha_ref(q, k, v),
+                  FLASH_TOL[str(dtype).split(".")[-1]])
+        spread = max(float((o.double() - outs[0].double()).abs().max())
+                     for o in outs[1:])
+        print(f"[parity] flash {dtype} across the blockings {REF_BLOCKINGS}:"
+              f" spread {spread:.3g} (the reference's, in f32: < 1e-5)",
+              flush=True)
+    # head dims off the native widths (zamba2-2.7b's 80, 32 heads on 32)
+    # and the native 128 (8 query heads on 1), S 256; 100 and 33 (no
+    # tensor map in bf16: the producer warp's copies; 4-byte cp.async in
+    # f32 at 33) and 50 (f32: 4-byte cp.async); every other general
+    # body: D 32 at 20 (no tensor map) and 24 (TMA, 64-byte swizzle),
+    # D 256 at 200 (TMA in bf16) and 250 (no tensor map)
+    for B, S, H, K, d, dtypes in ((1, 256, 32, 32, 80, BOTH),
+                                  (1, 256, 8, 1, 128, BOTH),
+                                  (2, 64, 4, 2, 100, BOTH),
+                                  (2, 64, 4, 2, 33, BOTH),
+                                  (2, 64, 4, 2, 50, (torch.float32,)),
+                                  (2, 64, 4, 2, 20, BOTH),
+                                  (2, 64, 4, 2, 24, BOTH),
+                                  (2, 128, 4, 2, 200, BOTH),
+                                  (2, 128, 4, 2, 250, BOTH)):
+        for dtype in dtypes:
+            q, k, v = _flash_inputs(dev, B, S, S, H, K, d, dtype, 11)
+            flash(f"flash d {d} ({H} on {K} heads, S {S}) {dtype}", q, k, v,
+                  block_q=128, block_kv=128)
+    # decode: one query row at q_offset = Skv - 1 (block_q clips to 1);
+    # gemma2-9b's head dim, window and soft-cap in bf16
+    for dtype in BOTH:
+        q, k, v = _flash_inputs(dev, 2, 1, 256, 8, 2, 64, dtype, 12)
+        for window in (0, 64):
+            flash(f"flash decode Skv 256 window {window} {dtype}", q, k, v,
+                  q_offset=255, window=window)
+    q, k, v = _flash_inputs(dev, 1, 1, 512, 16, 8, 256, torch.bfloat16, 12)
+    flash("flash decode d 256 Skv 512 bf16", q, k, v, q_offset=511,
+          window=256, softcap=50.0, block_kv=64)
+    # blocks off the 16-row grid, dividing whisper's 1,500 frames: the
+    # last 16- or 32-row tile is cut short (non-causal, every key live)
+    for dtype, blk in ((torch.float32, 12), (torch.bfloat16, 20)):
+        q, k, v = _flash_inputs(dev, 1, 1500, 1500, 4, 4, 64, dtype, 13)
+        flash(f"flash S 1500 blocks {blk} x {blk} non-causal {dtype}", q, k,
+              v, causal=False, block_q=blk, block_kv=blk)
+
     # the SSD at the fleet geometry: heads 1-8, chunks 8-64
     _, sop, sref, sargs = fleet_cuda_parity_cases(SSD_S, dev)[1]
     x, dt, A, Bm, Cm = sargs
@@ -666,6 +751,15 @@ def phase_fleet_parity(dev):
         args = _ssd_inputs(dev, Bz, S, H, P, N, 7)
         check("ssd_scan", f"ssd {(Bz, S, H, P, N)} chunk {chunk}",
               ssd(*args, chunk=chunk), ssd_oracle(*args), SSD_TOL)
+    # chunk 256, the ssm_chunk of mamba2-780m (P 64, N 128) and
+    # zamba2-2.7b (N 64): its staging exceeds the card, so it runs as
+    # sub-chunks (ssd_plan)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Bz, S, H, P, N in ((1, 512, 4, 64, 128), (1, 512, 4, 64, 64)):
+        args = _ssd_inputs(dev, Bz, S, H, P, N, 7)
+        run = ssd_plan(Bz, S, H, P, N, 256, sms, smem_optin(dev)).chunk
+        check("ssd_scan", f"ssd {(Bz, S, H, P, N)} chunk 256 (runs at "
+              f"{run})", ssd(*args, chunk=256), ssd_oracle(*args), SSD_TOL)
     for name in errs:
         print(f"[parity] {name}: max|d| {errs[name]:.3g} over "
               f"{points[name]} cases", flush=True)
@@ -904,7 +998,8 @@ def phase_fleet_times(dev):
     from repro_torch.apps.fleet import FLASH_D, FLASH_HEADS, FLASH_S
     from repro_torch.apps.fleet import SSD_N, SSD_P, SSD_S
     from repro_torch.kernels.flash_attention import mha, mha_ref
-    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle
+    from repro_torch.kernels.build import smem_optin
+    from repro_torch.kernels.ssd_scan import ssd, ssd_oracle, ssd_plan
     out = {}
 
     def flash_row(label, B, S, H, K, d, dtype, block_q, block_kv,
@@ -943,16 +1038,23 @@ def phase_fleet_times(dev):
                                                TF32_FLOPS_PER_S)
         return row, (q, k, v)
 
-    def ssd_row(label, Bz, S, H, P, N, chunk, launches=20, reps=TIME_REPS):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def ssd_row(label, Bz, S, H, P, N, chunk, launches=20, reps=TIME_REPS,
+                plain=None):
         args = _ssd_inputs(dev, Bz, S, H, P, N, 5)
+        # the chunk the kernel runs at (sub-chunks where the staging of
+        # ``chunk`` exceeds the card): its work is the bound's
+        run = ssd_plan(Bz, S, H, P, N, chunk, sms, smem_optin(dev)).chunk
         ms = _time_ms(dev, lambda: ssd(*args, chunk=chunk), launches, reps)
-        plain = _wall_ms(dev, lambda: ssd_oracle(*args))
+        if plain is None:
+            plain = _wall_ms(dev, lambda: ssd_oracle(*args))
         got, want = ssd(*args, chunk=chunk), ssd_oracle(*args)
         torch.cuda.synchronize(dev)
         # relative to max(1, max|ref|): the state sums 4096 steps here
         scale = max(1.0, max(float(w.abs().max()) for w in want))
         err = _abs_err(f"ssd {label}", got, want, SSD_TOL * scale)
-        nbytes, flops = _ssd_work(Bz, S, H, P, N, chunk)
+        nbytes, flops = _ssd_work(Bz, S, H, P, N, run)
         bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
         # the kernel's rate: three TF32 tensor-core products per product
         bound_tc, _ = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
@@ -961,7 +1063,7 @@ def phase_fleet_times(dev):
                 "library_ms": None, "bound_ms": bound, "bound_by": by,
                 "bound_3xtf32_ms": bound_tc, "passes_us": passes,
                 "bytes": nbytes, "flops": flops, "max_abs_err": err,
-                "chunk": chunk}
+                "chunk": chunk, "run_chunk": run}
 
     g, m = GEMMA_LAYER, MAMBA_LAYER
     dse, dse_qkv = flash_row("DSE (ports 2, unrolls 8)", 1, FLASH_S,
@@ -987,18 +1089,26 @@ def phase_fleet_times(dev):
     for key, row in model.items():
         if key != "{}x{}".format(*GEMMA_BLOCKS[0]):
             out["flash_attention"][f"model {key}"] = row
+    mamba = ssd_row("mamba2-780m layer", m["Bz"], m["S"], m["H"], m["P"],
+                    m["N"], m["chunk"], launches=3, reps=3)
     out["ssd_scan"] = {
         "dse": ssd_row("DSE (ports 1, unrolls 8)", 1, SSD_S, 1, SSD_P,
                        SSD_N, 8 * 8),
-        "model": ssd_row("mamba2-780m layer", m["Bz"], m["S"], m["H"],
-                         m["P"], m["N"], m["chunk"], launches=3, reps=3)}
+        "model": mamba,
+        # its own ssm_chunk, which runs as sub-chunks
+        f"model chunk {MAMBA_CHUNK}": ssd_row(
+            f"mamba2-780m layer, chunk {MAMBA_CHUNK}", m["Bz"], m["S"],
+            m["H"], m["P"], m["N"], MAMBA_CHUNK, launches=3, reps=3,
+            plain=mamba["plain_ms"])}
     for name, rows in out.items():
         for where, r in rows.items():
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
             tc = ("" if "bound_3xtf32_ms" not in r else
                   f", {r['bound_3xtf32_ms']:.6f} ms at the 3xTF32 rate")
-            print(f"[times] {name} {where}: kernel {r['ms']:.5f} ms, plain "
-                  f"{r['plain_ms']:.5f} ms, library {lib} ms, bound "
+            runs = ("" if r.get("run_chunk") == r.get("chunk")
+                    else f" (runs at chunk {r['run_chunk']})")
+            print(f"[times] {name} {where}{runs}: kernel {r['ms']:.5f} ms, "
+                  f"plain {r['plain_ms']:.5f} ms, library {lib} ms, bound "
                   f"{r['bound_ms']:.6f} ms ({r['bound_by']}; "
                   f"{r['bytes']} B, {r['flops']} flop{tc}), max|d| "
                   f"{r['max_abs_err']:.3g}", flush=True)
@@ -1090,7 +1200,7 @@ def main(argv=None) -> int:
                           "library_ms")},
         })
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "bound_3xtf32_ms", "blocks")
+            "max_abs_err", "bound_3xtf32_ms", "blocks", "chunk", "run_chunk")
     for k in FLEET_KERNELS:
         rows = fleet_times[k["name"]]
         t = rows["dse"]

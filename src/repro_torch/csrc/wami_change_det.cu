@@ -106,34 +106,6 @@ __device__ __forceinline__ bool gmm_pixel(float x, const float* m,
     return !any || (matched_w < kFgCut);
 }
 
-__device__ __forceinline__ void ld4(float* d, const float* s) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(s));
-    d[0] = t.x;
-    d[1] = t.y;
-    d[2] = t.z;
-    d[3] = t.w;
-}
-
-__device__ __forceinline__ void st4(float* d, const float* s) {
-    *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
-}
-
-// A tile row's pixels: `head` scalar ones up to the first 16-byte-aligned
-// run, `runs` runs of 4, then `tail` scalar ones.  Work items of a CTA:
-// bh * runs runs first, then bh * (head + tail) scalar pixels.
-struct RowSplit {
-    int head, runs, tail;
-};
-
-__host__ __device__ __forceinline__ RowSplit row_split(int col0, int bw,
-                                                       bool vec) {
-    if (!vec) return {bw, 0, 0};
-    const int lead = (4 - col0 % 4) % 4;
-    const int head = lead < bw ? lead : bw;
-    const int runs = (bw - head) / 4;
-    return {head, runs, bw - head - 4 * runs};
-}
-
 __global__ void __launch_bounds__(1024)
 change_det_kernel(const float* __restrict__ gray,
                   const float* __restrict__ mu,
@@ -207,10 +179,9 @@ change_det_kernel(const float* __restrict__ gray,
 
 // gray: (H, W) float32; mu, var, w: (H, W, 3) float32 -> mask: (H, W)
 // bool, mu_o, var_o, w_o: (H, W, 3) float32; W % ports == 0 and
-// H % unrolls == 0 (checked by the Python wrapper).  Threads per CTA: the
-// tile's work items (runs of 4 plus scalar pixels) rounded up to a whole
-// warp, at most 1,024 -- kernels/wami_change_det/kernel.py's
-// change_det_geometry is the same formula.
+// H % unrolls == 0 (checked by the Python wrapper).  Threads per CTA:
+// run4_threads (wami_common.cuh), the tile's work items (runs of 4 plus
+// scalar pixels) rounded up to a whole warp, at most 1,024.
 WAMI_EXPORT int wami_change_det(const float* gray, const float* mu,
                                 const float* var, const float* w,
                                 bool* mask, float* mu_o, float* var_o,
@@ -225,16 +196,7 @@ WAMI_EXPORT int wami_change_det(const float* gray, const float* mu,
         | reinterpret_cast<uintptr_t>(w_o);
     const bool vec = W % 4 == 0 && (any16 & 15) == 0
                      && (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
-    // a tile's first column j * bw takes at most four values mod 4: the
-    // most items any CTA has
-    int items = 0;
-    for (int j = 0; j < ports && j < 4; ++j) {
-        const RowSplit rs = row_split(j * bw, bw, vec);
-        const int n = bh * (rs.runs + rs.head + rs.tail);
-        if (n > items) items = n;
-    }
-    const int warps = (items + 31) / 32;
-    const int threads = warps < 32 ? 32 * warps : 1024;
+    const int threads = run4_threads(ports, bh, bw, vec);
     const dim3 grid(H / unrolls, ports);
     change_det_kernel<<<grid, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(

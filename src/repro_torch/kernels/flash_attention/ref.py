@@ -6,7 +6,7 @@ O(S^2) memory; the ground truth the kernel is held against.  A row that
 every position masks gives NaN here and 0 in the kernel (the JAX pair
 differs the same way), so comparisons keep off such rows.
 
-:func:`flash_tiled_ref` follows the CUDA kernel's blocks and numerics in
+:func:`flash_tiled_ref` follows the CUDA kernel's tiles and numerics in
 plain PyTorch (tests only; nothing on the main path calls it), so the
 tests can check the kernel's arithmetic on the CPU.
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .kernel import flash_plan
 
 __all__ = ["attention_ref", "flash_tiled_ref"]
 
@@ -70,14 +72,15 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0,
-                    block_q: int = 128, block_kv: int = 128
-                    ) -> torch.Tensor:
+                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
     """q: (B, Sq, H, d); k, v: (B, Skv, K, d), the model layout ->
-    (B, Sq, H, d) in q's type, walking the KV blocks of each query block
-    as the kernel does: the online softmax in float32 with scores masked
-    to -1e30, the soft-cap before the mask, p zeroed where masked, l the
-    sum of the float32 p, and acc / max(l, 1e-30).  Blocks are clipped
-    to the sequences and must divide them.
+    (B, Sq, H, d) in q's type, walking the tiles the kernel walks (those
+    of ``flash_plan`` for these blocks on an H100; a last tile past Sq or
+    Skv is cut short, as the kernel masks its padded rows): the online
+    softmax in float32 with scores masked to -1e30, the soft-cap before
+    the mask, p zeroed where masked, l the sum of the float32 p, and
+    acc / max(l, 1e-30).  Blocks are clipped to the sequences and must
+    divide them.
 
     float32: q is scaled before the dot, and both products are the three
     TF32 products of the big/small split.  bfloat16: S is formed from
@@ -89,6 +92,8 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % bq or Skv % bkv:
         raise ValueError(f"blocks ({bq}, {bkv}) do not divide ({Sq}, "
                          f"{Skv})")
+    plan = flash_plan(d, Sq, Skv, bq, bkv, q.dtype)
+    tq, tkv = plan.tile_q, plan.tile_kv
     bf16 = q.dtype == torch.bfloat16
     scale = 1.0 / math.sqrt(d)
     # (B, H, S, d) float32, k and v repeated onto their query heads
@@ -98,27 +103,28 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not bf16:
         qf = qf * scale
     out = torch.empty_like(qf)
-    for q0 in range(0, Sq, bq):
-        pos = torch.arange(q0, q0 + bq, device=q.device) + q_offset
-        lo, hi = 0, Skv // bkv          # the KV blocks with a live pair
+    for q0 in range(0, Sq, tq):
+        q1 = min(q0 + tq, Sq)
+        pos = torch.arange(q0, q1, device=q.device) + q_offset
+        lo, hi = 0, plan.n_kv           # the KV tiles with a live pair
         if causal:
-            hi = min(hi, max(0, (q0 + bq - 1 + q_offset) // bkv + 1))
+            hi = min(hi, max(0, (q1 - 1 + q_offset) // tkv + 1))
         if window > 0:
-            lo = max(0, (q0 + q_offset - window + 1) // bkv)
-        qb = qf[:, :, q0:q0 + bq]
+            lo = max(0, (q0 + q_offset - window + 1) // tkv)
+        qb = qf[:, :, q0:q1]
         m = torch.full(qb.shape[:-1], _NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qb)
         for kb in range(lo, hi):
-            k0 = kb * bkv
-            kt, vt = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
+            k0, k1 = kb * tkv, min(kb * tkv + tkv, Skv)
+            kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
             if bf16:
                 s = (qb @ kt.transpose(-1, -2)) * scale
             else:
                 s = _mm_3xtf32(qb, kt.transpose(-1, -2))
             if softcap and softcap > 0:
                 s = torch.tanh(s / softcap) * softcap
-            dist = pos[:, None] - torch.arange(k0, k0 + bkv,
+            dist = pos[:, None] - torch.arange(k0, k1,
                                                device=q.device)[None, :]
             ok = torch.ones_like(dist, dtype=torch.bool)
             if causal:
@@ -135,5 +141,5 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   else _mm_3xtf32(p, vt))
             acc = acc * corr[..., None] + pv
             m = m_new
-        out[:, :, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).contiguous().to(q.dtype)

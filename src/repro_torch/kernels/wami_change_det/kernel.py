@@ -17,7 +17,8 @@ import functools
 import torch
 
 from ..build import CudaKernel, current_stream, require_cuda_f32
-from ..wami_common import grid_steps_model, knob_blocks, vmem_bytes_model
+from ..wami_common import (grid_steps_model, knob_blocks, run4_geometry,
+                           vmem_bytes_model)
 
 __all__ = ["change_det_kernel", "change_detection_cuda", "vmem_bytes",
            "grid_steps", "change_det_geometry"]
@@ -35,19 +36,9 @@ change_det_kernel = CudaKernel(
 
 def change_det_geometry(H: int, W: int, *, ports: int, unrolls: int):
     """(threads per CTA, passes of the widest CTA) of a launch on 16-byte
-    aligned tensors, the C entry point's formula: a tile row splits into
-    scalar pixels up to its first 16-byte-aligned run of 4, whole runs,
-    and a scalar tail (every pixel scalar when W % 4 != 0); a CTA takes
-    one thread per item, rounded up to a warp, at most 1,024."""
-    bh, bw = knob_blocks(H, W, ports=ports, unrolls=unrolls)
-    vec = W % 4 == 0
-    items = 0
-    for j in range(min(ports, 4)):       # tile columns j * bw, mod 4
-        head = min(bw, (4 - j * bw % 4) % 4) if vec else bw
-        runs = (bw - head) // 4
-        items = max(items, bh * (bw - 3 * runs))   # runs + scalars
-    threads = min(1024, -(-items // 32) * 32)
-    return threads, -(-items // threads)
+    aligned tensors: :func:`run4_geometry`, a thread per run of 4
+    pixels, at most 1,024 a CTA."""
+    return run4_geometry(H, W, ports=ports, unrolls=unrolls)
 
 
 def change_detection_cuda(gray: torch.Tensor, mu: torch.Tensor,

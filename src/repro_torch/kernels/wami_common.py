@@ -11,9 +11,11 @@ geometry:
 
 The grid is ``(H / unrolls, ports)``; CTA ``(i, j)`` covers rows
 ``[i * unrolls, (i + 1) * unrolls)`` of column bank ``j``.  This module
-holds the knob -> geometry translation and the footprint/grid cost
+holds the knob -> geometry translation, the footprint/grid cost
 models, parameterized by the number of input/output blocks a kernel
-touches per grid cell.
+touches per grid cell, and :func:`run4_geometry`, the threads of the
+kernels that take a run of 4 pixels a thread (debayer, gradient, change
+detection).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 from typing import Tuple
 
 __all__ = ["knob_blocks", "launch_grid", "vmem_bytes_model",
-           "grid_steps_model"]
+           "grid_steps_model", "run4_geometry"]
 
 
 def knob_blocks(H: int, W: int, *, ports: int, unrolls: int
@@ -52,3 +54,22 @@ def vmem_bytes_model(H: int, W: int, *, ports: int, unrolls: int,
 def grid_steps_model(H: int, W: int, *, ports: int, unrolls: int) -> int:
     """Grid cells one core would walk in sequence (latency model input)."""
     return (H // unrolls) * ports
+
+
+def run4_geometry(H: int, W: int, *, ports: int, unrolls: int
+                  ) -> Tuple[int, int]:
+    """(threads per CTA, passes of the widest CTA) of a run-of-4 launch
+    on 16-byte aligned tensors, the formula of ``run4_threads`` in
+    ``csrc/wami_common.cuh``: a tile row splits into scalar pixels up to
+    its first 16-byte-aligned run of 4, whole runs, and a scalar tail
+    (every pixel scalar when W % 4 != 0); a CTA takes one thread per
+    item, rounded up to a warp, at most 1,024."""
+    bh, bw = knob_blocks(H, W, ports=ports, unrolls=unrolls)
+    vec = W % 4 == 0
+    items = 0
+    for j in range(min(ports, 4)):       # tile columns j * bw, mod 4
+        head = min(bw, (4 - j * bw % 4) % 4) if vec else bw
+        runs = (bw - head) // 4
+        items = max(items, bh * (bw - 3 * runs))   # runs + scalars
+    threads = min(1024, -(-items // 32) * 32)
+    return threads, -(-items // threads)

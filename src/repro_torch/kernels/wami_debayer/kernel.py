@@ -1,9 +1,12 @@
 """ctypes binding of ``csrc/wami_debayer.cu`` (bilinear RGGB demosaic).
 
 The kernel reads the unpadded mosaic once and maps its neighbour
-indices through the reflect padding.  Its cost model stays the one the
-stage is priced by: nine shifted input views and three output planes
-per grid cell.
+indices through the reflect padding; a thread takes a run of 4 adjacent
+pixels with 16-byte loads and stores (one pixel in tiles of at most 256),
+and a CTA up to 1,024 threads (:func:`debayer_geometry` is the C
+source's launch formula).  Its cost
+model stays the one the stage is priced by: nine shifted input views and
+three output planes per grid cell.
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ import functools
 import torch
 
 from ..build import CudaKernel, current_stream, require_cuda_f32
-from ..wami_common import grid_steps_model, knob_blocks, vmem_bytes_model
+from ..wami_common import (grid_steps_model, knob_blocks, run4_geometry,
+                           vmem_bytes_model)
 
-__all__ = ["debayer_kernel", "debayer_cuda", "vmem_bytes", "grid_steps"]
+__all__ = ["debayer_kernel", "debayer_cuda", "vmem_bytes", "grid_steps",
+           "debayer_geometry"]
 
 # centre + 8 neighbour views in, R/G/B planes out: the blocks a grid cell
 # works on
@@ -47,3 +52,15 @@ def debayer_cuda(bayer: torch.Tensor, *, ports: int = 1,
 
 vmem_bytes = functools.partial(vmem_bytes_model, n_in=_N_IN, n_out=_N_OUT)
 grid_steps = grid_steps_model
+SCALAR_PIXELS = 256      # tiles up to this size: one pixel a thread
+
+
+def debayer_geometry(H: int, W: int, *, ports: int, unrolls: int):
+    """(threads per CTA, passes of the widest CTA) of a launch on 16-byte
+    aligned tensors, the C entry point's formula: one thread a pixel for
+    tiles of at most :data:`SCALAR_PIXELS` pixels, else a thread per run
+    of 4 (:func:`run4_geometry`)."""
+    bh, bw = knob_blocks(H, W, ports=ports, unrolls=unrolls)
+    if bh * bw <= SCALAR_PIXELS:
+        return -(-bh * bw // 32) * 32, 1
+    return run4_geometry(H, W, ports=ports, unrolls=unrolls)

@@ -23,13 +23,17 @@ from repro.kernels.flash_attention import mha as j_mha, mha_ref as j_mha_ref
 from repro.kernels.ssd_scan import ssd as j_ssd, ssd_oracle as j_ssd_oracle
 import repro_torch.apps.fleet.pipeline as TF
 from repro_torch.kernels.build import CSRC_DIR, SOURCES
-from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+from repro_torch.kernels.flash_attention import (H100_SMEM_OPTIN,
+                                                 HEAD_DIMS,
+                                                 flash_attention_kernel,
+                                                 flash_blocks, flash_plan,
                                                  flash_smem_bytes,
                                                  flash_tiled_ref, mha,
                                                  mha_ref)
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref,
                                           ssd_heads_per_cta, ssd_oracle,
-                                          ssd_p_split, ssd_scan_kernel,
+                                          ssd_p_split, ssd_plan,
+                                          ssd_scan_kernel,
                                           ssd_scratch_floats, ssd_smem_bytes)
 
 FLASH_SHAPES = [
@@ -44,7 +48,6 @@ SSD_SHAPES = [
     (2, 64, 8, 16, 32, 64),        # chunk == S (single chunk)
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-SMEM_H100 = 232448                 # an H100's opt-in smem per block
 
 
 def _flash_inputs(B, Sq, Skv, H, K, d, seed=7):
@@ -240,9 +243,9 @@ def test_footprint_model_rules_out_two_flash_points_on_the_card():
     """2 * step against an H100's 232,448 bytes: flash (1, 4) and (1, 8)
     do not fit, (1, 2) just does; every SSD point fits."""
     step = lambda fn, p, u: 2 * fn(128, 128, ports=p, unrolls=u)  # noqa
-    assert step(TF.flash_vmem_bytes, 1, 4) == 264192 > SMEM_H100
-    assert step(TF.flash_vmem_bytes, 1, 8) == 329728 > SMEM_H100
-    assert step(TF.flash_vmem_bytes, 1, 2) == 231424 <= SMEM_H100
+    assert step(TF.flash_vmem_bytes, 1, 4) == 264192 > H100_SMEM_OPTIN
+    assert step(TF.flash_vmem_bytes, 1, 8) == 329728 > H100_SMEM_OPTIN
+    assert step(TF.flash_vmem_bytes, 1, 2) == 231424 <= H100_SMEM_OPTIN
     assert max(2 * TF.ssd_vmem_bytes(256, 8, ports=p, unrolls=u)
                for p in (1, 2, 4) for u in range(1, 9)) == 197120
 
@@ -252,7 +255,7 @@ def _ssd_staging(Bz, S, H, P, N, chunk):
     H100 (132 SMs, 232,448 B per block)."""
     hpc = ssd_heads_per_cta(Bz, H, S // chunk, 132)
     split = ssd_p_split(Bz, H, P, S // chunk, 132, chunk=chunk, N=N,
-                        smem_cap=SMEM_H100, heads_per_cta=hpc)
+                        smem_cap=H100_SMEM_OPTIN, heads_per_cta=hpc)
     return split, ssd_smem_bytes(chunk, P // split, N)
 
 
@@ -269,21 +272,33 @@ def test_kernels_stage_within_the_card_at_the_paths_shapes():
             # (1, 4) and (1, 8) too: the footprint model rules them out,
             # the parity checks run them
             assert flash_smem_bytes(64, 128 // ports, 16 * unrolls,
-                                    f32) <= SMEM_H100
+                                    f32) <= H100_SMEM_OPTIN
             _, smem = _ssd_staging(1, TF.SSD_S, ports, TF.SSD_P, TF.SSD_N,
                                    8 * unrolls)
-            assert smem <= SMEM_H100
+            assert smem <= H100_SMEM_OPTIN
     assert flash_smem_bytes(64, 128, 128, f32) == 174080       # (1, 8)
     # gemma2-9b (d 256, bf16): the old blocks and the larger ones
     assert flash_smem_bytes(256, 64, 32, bf16) == 99392
-    assert flash_smem_bytes(256, 64, 64, bf16) == 164928 <= SMEM_H100
-    assert flash_smem_bytes(256, 128, 128, bf16) > SMEM_H100  # refused
-    assert flash_smem_bytes(256, 64, 64, f32) > SMEM_H100     # refused
+    assert flash_smem_bytes(256, 64, 64, bf16) == 164928 <= H100_SMEM_OPTIN
+    # blocks whose own staging exceeds the card run at the plan's tiles,
+    # which fit: two 64-row CTAs a 128-row block in bf16, 16-row KV steps
+    # in f32
+    assert flash_smem_bytes(256, 128, 128, bf16) > H100_SMEM_OPTIN
+    plan = flash_plan(256, 512, 512, 128, 128, bf16, H100_SMEM_OPTIN)
+    assert (plan.tile_q, plan.tile_kv, plan.smem) == (64, 64, 164928)
+    assert flash_smem_bytes(256, 64, 64, f32) > H100_SMEM_OPTIN
+    plan = flash_plan(256, 512, 512, 64, 64, f32, H100_SMEM_OPTIN)
+    assert (plan.tile_q, plan.tile_kv) == (64, 32)
+    assert plan.smem <= H100_SMEM_OPTIN
     # mamba2-780m: 64 chunks x 48 heads fill the card unsplit
     assert _ssd_staging(1, 4096, 48, 64, 128, 64) == (1, 103968)
-    # chunk 128 at N 128 fits once P is split; chunk 256 cannot
-    assert _ssd_staging(1, 256, 2, 64, 128, 128)[1] <= SMEM_H100
-    assert ssd_smem_bytes(256, 16, 128) > SMEM_H100           # refused
+    # chunk 128 at N 128 fits once P is split; chunk 256 does not at any
+    # split, and runs as four chunks of 64, which fit with P whole
+    assert _ssd_staging(1, 256, 2, 64, 128, 128)[1] <= H100_SMEM_OPTIN
+    assert ssd_smem_bytes(256, 16, 128) > H100_SMEM_OPTIN
+    plan = ssd_plan(1, 256, 2, 64, 128, 256, 132, H100_SMEM_OPTIN)
+    assert (plan.chunk, plan.n_chunks) == (64, 4)
+    assert plan.smem <= H100_SMEM_OPTIN
 
 
 def test_ssd_p_split_fills_the_card_and_keeps_slices_wide():
@@ -291,15 +306,15 @@ def test_ssd_p_split_fills_the_card_and_keeps_slices_wide():
     batch), P split while the grid has fewer CTAs than SMs or a slice
     stages more than the card allows, never below 16 wide."""
     split = functools.partial(ssd_p_split, chunk=64, N=64,
-                              smem_cap=SMEM_H100)
+                              smem_cap=H100_SMEM_OPTIN)
     assert split(1, 1, 64, 4, 132) == 4      # 16-wide slices at most
     assert split(1, 4, 64, 32, 132) == 2     # 128 CTAs -> 256
     assert split(1, 48, 64, 64, 132) == 1    # 3,072 CTAs already
     assert split(1, 4, 24, 1, 132) == 1      # 12 wide is too narrow
     # a 64-wide slice of chunk 128 at N 128 stages 240,672 B
-    assert ssd_smem_bytes(128, 64, 128) == 240672 > SMEM_H100
+    assert ssd_smem_bytes(128, 64, 128) == 240672 > H100_SMEM_OPTIN
     assert ssd_p_split(1, 48, 64, 32, 132, chunk=128, N=128,
-                       smem_cap=SMEM_H100) == 2
+                       smem_cap=H100_SMEM_OPTIN) == 2
 
 
 def test_ssd_groups_heads_only_where_the_grid_stays_deep():
@@ -313,7 +328,7 @@ def test_ssd_groups_heads_only_where_the_grid_stays_deep():
             assert ssd_heads_per_cta(1, heads, 256 // chunk, 132) == 1
     # grouped heads count once in the grid that P is split to fill
     assert ssd_p_split(1, 8, 64, 16, 132, chunk=16, N=64,
-                       smem_cap=SMEM_H100, heads_per_cta=4) == 4
+                       smem_cap=H100_SMEM_OPTIN, heads_per_cta=4) == 4
 
 
 def test_ssd_scratch_holds_every_chunk_state_and_decay():
@@ -365,3 +380,208 @@ def test_binding_matches_the_c_entry_point(kernel):
     want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
             for p in params]
     assert kernel.argtypes == want
+
+
+# ----------------------------------------------------------------------
+# every shape the reference computes: the launch plans
+# ----------------------------------------------------------------------
+BF16, F32 = torch.bfloat16, torch.float32
+# tests/test_kernels.py::test_flash_block_size_invariance's blockings
+REF_BLOCKINGS = [(64, 64), (128, 128), (64, 256), (256, 64)]
+
+
+def _assert_plan_covers(plan, d, Sq, Skv, dtype):
+    """A plan's launch fits the card and its tiles cover the call: the
+    least native head dim >= d, whole tiles over both sequences, TMA in
+    bf16 exactly where d % 8 == 0 (aligned tensors), one warpgroup (64
+    query rows) a CTA in bf16 at D 256."""
+    assert plan.smem == flash_smem_bytes(plan.D, plan.tile_q, plan.tile_kv,
+                                         dtype) <= H100_SMEM_OPTIN
+    assert plan.D == min(n for n in HEAD_DIMS if n >= d)
+    assert plan.tile_q % 16 == 0 and 16 <= plan.tile_q <= 128
+    assert plan.tile_kv in (16, 32, 64, 128)
+    assert plan.n_kv == -(-Skv // plan.tile_kv)
+    assert plan.tma == (dtype == BF16 and d % 8 == 0)
+    assert plan.general == bool(d != plan.D or Sq % plan.tile_q
+                                or Skv % plan.tile_kv)
+    if plan.general:                        # the bodies built for it
+        assert plan.tile_kv == 16 and (dtype == F32 or plan.tile_q <= 64)
+    if dtype == BF16:                       # O at d 256: one warpgroup
+        assert plan.tile_q <= 64 or plan.D < 256
+
+
+@pytest.mark.parametrize("d,dtype", [(d, t) for t in (F32, BF16)
+                                     for d in range(16, 257, 8)]
+                         + [(100, F32)], ids=str)
+def test_flash_plan_takes_every_head_dim(d, dtype):
+    """Head dims 16-256 in steps of 8 in both types, and 100 in float32
+    (bf16's is in test_flash_plan_without_a_tensor_map), run in the next
+    native body at the blocks the fleet and gemma use; none is refused."""
+    for block_q, block_kv in ((128, 128), (64, 64)):
+        plan = flash_plan(d, 512, 512, block_q, block_kv, dtype,
+                          H100_SMEM_OPTIN)
+        _assert_plan_covers(plan, d, 512, 512, dtype)
+
+
+def test_flash_plan_without_a_tensor_map():
+    """bf16 head dims off the 16-byte grid (d % 8 != 0) get no TMA: the
+    producer warp's copies; f32 plans them like any other d.  Tensors off
+    the 16-byte grid take the general body, without TMA in bf16."""
+    for d in (100, 33, 1, 250):
+        plan = flash_plan(d, 64, 64, 32, 32, BF16, H100_SMEM_OPTIN)
+        assert not plan.tma
+        _assert_plan_covers(plan, d, 64, 64, BF16)
+        _assert_plan_covers(flash_plan(d, 64, 64, 32, 32, F32,
+                                       H100_SMEM_OPTIN), d, 64, 64, F32)
+    for dtype in (F32, BF16):
+        plan = flash_plan(64, 64, 64, 32, 32, dtype, H100_SMEM_OPTIN,
+                          aligned=False)
+        assert plan.general and not plan.tma and plan.tile_kv == 16
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+@pytest.mark.parametrize("block_q,block_kv", REF_BLOCKINGS)
+def test_flash_plan_takes_the_reference_blockings(block_q, block_kv,
+                                                  dtype):
+    """(1, 256, 4 on 2, d 64) at the reference's four blockings: an
+    over-sized block runs as 128-row sub-tiles (more CTAs for queries,
+    more steps of the KV walk)."""
+    bq, bkv = flash_blocks(256, 256, block_q, block_kv)
+    plan = flash_plan(64, 256, 256, bq, bkv, dtype, H100_SMEM_OPTIN)
+    _assert_plan_covers(plan, 64, 256, 256, dtype)
+    assert plan.tile_q == min(block_q, 128)
+    assert plan.tile_kv == min(block_kv, 128)
+
+
+def test_flash_plan_head_dim_256_bf16_at_128_blocks():
+    """gemma2-9b's head dim at (128, 128) in bf16: two 64-row CTAs per
+    query block (one warpgroup each) and 64-row KV steps."""
+    plan = flash_plan(256, 4096, 4096, 128, 128, BF16, H100_SMEM_OPTIN)
+    _assert_plan_covers(plan, 256, 4096, 4096, BF16)
+    assert (plan.tile_q, plan.tile_kv) == (64, 64)
+    assert 4096 // plan.tile_q == 64        # CTAs per (head, batch)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+def test_flash_plan_takes_decode(dtype):
+    """Decode: one query row (block_q clips to 1) at q_offset Skv - 1
+    runs as one 16-row tile whose other rows are masked."""
+    bq, bkv = flash_blocks(1, 256, 128, 128)
+    assert (bq, bkv) == (1, 128)
+    for d in (64, 128, 256):
+        plan = flash_plan(d, 1, 256, bq, bkv, dtype, H100_SMEM_OPTIN)
+        _assert_plan_covers(plan, d, 1, 256, dtype)
+        assert plan.tile_q == 16 and plan.general
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+@pytest.mark.parametrize("block", [12, 20])
+def test_flash_plan_takes_blocks_off_the_16_row_grid(block, dtype):
+    """Blocks of 12 and 20 over whisper's 1,500 frames: 16-row KV tiles
+    (the general body's), the last one cut short (1,500 = 93 x 16 + 12),
+    and 16- or 32-row query tiles."""
+    bq, bkv = flash_blocks(1500, 1500, block, block)
+    plan = flash_plan(64, 1500, 1500, bq, bkv, dtype, H100_SMEM_OPTIN)
+    _assert_plan_covers(plan, 64, 1500, 1500, dtype)
+    assert plan.general and (plan.tile_kv, plan.n_kv) == (16, 94)
+    assert plan.tile_q == {12: 16, 20: 32}[block]
+
+
+def test_flash_plan_keeps_the_launch_at_the_paths_blocks():
+    """At the fleet DSE's 12 knob points (f32, d 64, S 128) and the gemma
+    blocks (bf16, d 256, S 4096) the plan is the caller's blocks in the
+    exact body: the grid (S / tile_q CTAs a head), threads (from tile_q)
+    and staging of the launch before the plan existed."""
+    for ports in (1, 2, 4):
+        for unrolls in (1, 2, 4, 8):
+            bq, bkv = 128 // ports, 16 * unrolls
+            plan = flash_plan(64, 128, 128, bq, bkv, F32, H100_SMEM_OPTIN)
+            assert plan == ("f32", 64, bq, bkv, 128 // bkv,
+                            4 * (bq + 4 * bkv) * 68, False, False)
+    for bq, bkv in ((64, 32), (64, 64)):
+        plan = flash_plan(256, 4096, 4096, bq, bkv, BF16, H100_SMEM_OPTIN)
+        assert plan == ("bf16", 256, bq, bkv, 4096 // bkv,
+                        flash_smem_bytes(256, bq, bkv, BF16), True, False)
+
+
+def test_flash_plan_refuses_head_dims_above_256():
+    """No config of the repository has d > 256 (ROADMAP Queue 3)."""
+    with pytest.raises(ValueError):
+        flash_plan(264, 128, 128, 64, 64, BF16, H100_SMEM_OPTIN)
+
+
+def _j_flash(j, **kw):
+    return j_mha(*j, use_pallas=True, interpret=True, **kw)
+
+
+FLASH_NEW_SHAPES = [
+    # (B, Sq, Skv, H, K, d), kwargs: head dims 80 and 128 (GQA 4 on 2),
+    # decode, the reference's over-sized blockings
+    ((1, 128, 128, 4, 2, 80), dict(block_q=64, block_kv=64)),
+    ((1, 128, 128, 4, 2, 128), dict(block_q=128, block_kv=128)),
+    ((2, 1, 256, 4, 2, 64), dict(q_offset=255, block_q=128, block_kv=128)),
+    ((1, 256, 256, 4, 2, 64), dict(block_q=64, block_kv=256)),
+    ((1, 256, 256, 4, 2, 64), dict(block_q=256, block_kv=64)),
+]
+FLASH_NEW_IDS = ["d80", "d128", "decode", "blocks64x256", "blocks256x64"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", FLASH_NEW_SHAPES, ids=FLASH_NEW_IDS)
+def test_flash_plain_and_tiled_ref_at_new_shapes_match_jax_oracle(
+        shape, kw, dtype):
+    """The plain version and ``flash_tiled_ref`` (the kernel's tiles and
+    numerics) against the JAX oracle at the shapes the kernel now takes."""
+    t, j = _both(_flash_inputs(*shape), dtype)
+    want = j_mha_ref(*j, q_offset=kw.get("q_offset", 0))
+    assert _max_err(mha(*t, **kw), want) < TOL[dtype]
+    got = flash_tiled_ref(*t, **kw)
+    assert got.dtype == t[0].dtype and tuple(got.shape) == tuple(t[0].shape)
+    assert _max_err(got, want) < TOL[dtype]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("shape,kw", FLASH_NEW_SHAPES, ids=FLASH_NEW_IDS)
+def test_flash_tiled_ref_at_new_shapes_matches_jax_pallas_interpret(shape,
+                                                                    kw):
+    """The same shapes against the JAX Pallas kernel in interpret mode at
+    the same blocks, float32."""
+    t, j = _both(_flash_inputs(*shape), "float32")
+    want = _j_flash(j, causal=True, **kw)
+    assert _max_err(flash_tiled_ref(*t, **kw), want) < TOL["float32"]
+    assert _max_err(mha(*t, **kw), want) < TOL["float32"]
+
+
+def test_ssd_plan_runs_chunk_256_as_sub_chunks():
+    """chunk 256 (mamba2-780m: P 64, N 128, 48 heads; zamba2-2.7b: N 64,
+    80 heads) stages more than the card at any split of P and runs as the
+    largest sub-chunks that fit with P whole (64 at N 128, where 128
+    fits only split; 128 at N 64); chunks that fit keep their launch."""
+    for H, N, run in ((48, 128, 64), (80, 64, 128)):
+        plan = ssd_plan(1, 4096, H, 64, N, 256, 132, H100_SMEM_OPTIN)
+        assert (plan.chunk, plan.n_chunks) == (run, 4096 // run)
+        assert plan.smem <= ssd_smem_bytes(run, 64, N) <= H100_SMEM_OPTIN
+    for Bz, S, H, P, N, chunk in ((1, 4096, 48, 64, 128, 64),
+                                  (1, 256, 2, 64, 128, 128),
+                                  (1, TF.SSD_S, 4, TF.SSD_P, TF.SSD_N, 8),
+                                  (1, TF.SSD_S, 1, TF.SSD_P, TF.SSD_N, 64)):
+        hpc = ssd_heads_per_cta(Bz, H, S // chunk, 132)
+        split = ssd_p_split(Bz, H, P, S // chunk, 132, chunk=chunk, N=N,
+                            smem_cap=H100_SMEM_OPTIN, heads_per_cta=hpc)
+        assert ssd_plan(Bz, S, H, P, N, chunk, 132, H100_SMEM_OPTIN) == (
+            chunk, S // chunk, hpc, split, ssd_smem_bytes(chunk, P // split,
+                                                          N))
+
+
+@pytest.mark.slow
+def test_ssd_chunk_256_matches_jax_pallas_interpret():
+    """(1, 512, 2, 16, 32) at chunk 256: the plain version, and the
+    kernel's decomposition at the chunk the plan runs (128), against the
+    JAX kernel in interpret mode at chunk 256."""
+    t, j = _both(_ssd_inputs(1, 512, 2, 16, 32), "float32")
+    jy, jh = j_ssd(*j, chunk=256, use_pallas=True, interpret=True)
+    run = ssd_plan(1, 512, 2, 16, 32, 256, 132, H100_SMEM_OPTIN).chunk
+    assert run == 128
+    for y, h in (ssd(*t, chunk=256), ssd_chunked_ref(*t, chunk=run)):
+        assert _max_err(y, jy) < 1e-4
+        assert _max_err(h, jh) < 1e-4

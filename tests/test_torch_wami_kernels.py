@@ -312,6 +312,47 @@ def test_change_det_launch_geometry_at_every_table1_point():
     assert change_det_geometry(32, 72, ports=8, unrolls=4) == (32, 1)
 
 
+@pytest.mark.parametrize("stage,geometry", [
+    ("debayer", tdeb.kernel.debayer_geometry),
+    ("gradient", tgrad.kernel.gradient_geometry)])
+def test_debayer_gradient_launch_geometry_at_every_table1_point(stage,
+                                                                geometry):
+    """Debayer and gradient take a run of 4 pixels a thread, up to 1,024
+    threads a CTA (debayer: one pixel a thread in tiles of at most 256):
+    one pass over every Table-1 tile of the 128 x 128 frame (at most
+    4,096 pixels), at most four at 512 x 512 (ports 1, unrolls 32 has
+    4,096 runs); a frame whose width is not a multiple of 4 runs one
+    scalar pixel a thread, and a tile off the 16-byte grid adds a scalar
+    head or tail."""
+    max_ports, max_unrolls = WAMI_KNOB_TABLE[stage]
+    assert (max_ports, max_unrolls) == (16, 32)
+    passes = {}
+    for n in (TILE, 512):
+        for ports in range(1, max_ports + 1):
+            for unrolls in range(1, max_unrolls + 1):
+                if n % ports or n % unrolls:
+                    continue
+                threads, p = geometry(n, n, ports=ports, unrolls=unrolls)
+                assert threads <= 1024 and threads % 32 == 0
+                pixels = unrolls * (n // ports)
+                items = (pixels if stage == "debayer" and pixels <= 256
+                         else pixels // 4)
+                assert threads == min(1024, -(-items // 32) * 32)
+                passes[n] = max(passes.get(n, 0), p)
+    assert passes == {TILE: 1, 512: 4}
+    assert geometry(512, 512, ports=1, unrolls=32) == (1024, 4)
+    assert geometry(TILE, TILE, ports=1, unrolls=32) == (1024, 1)
+    # W % 4 != 0: every pixel scalar (30 pixels of a 6-column tile)
+    assert geometry(30, 66, ports=11, unrolls=5) == (32, 1)
+    # 9-column tiles at 72 (36 pixels: one a thread in debayer; else runs
+    # of 4 between a scalar head and tail)
+    assert geometry(32, 72, ports=8, unrolls=4) == (
+        (64, 1) if stage == "debayer" else (32, 1))
+    # 160 pixels: one a thread in debayer, 40 runs in gradient
+    assert geometry(30, 64, ports=2, unrolls=5) == (
+        (160, 1) if stage == "debayer" else (64, 1))
+
+
 @pytest.mark.parametrize("kernel", [
     tgray.grayscale_kernel, tgrad.gradient_kernel,
     tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
