@@ -14,12 +14,11 @@ which fails the run on any error:
      Table-1 knob points (the Hessian over every dividing point of its
      Table-1 grid, and the same bits on three runs; tolerance max|d| /
      max(1, max|ref|): 1e-5, Hessian 1e-4; the change-detection mask
-     exactly equal; debayer and gradient the same bits), debayer also on
-     a 30x64 frame whose 5-row blocks do not align to the Bayer quad,
-     debayer, gradient and change detection also on 30x66 (W % 4 != 0),
-     gradient and change detection on 32x72 and debayer on 64x72 frames
-     (tiles off the 16-byte grid: the scalar head and tail of the runs of
-     4),
+     exactly equal; debayer, grayscale, gradient and steepest descent
+     the same bits), debayer also on a 30x64 frame whose 5-row blocks do
+     not align to the Bayer quad, every run-of-4 kernel also on 30x66
+     (W % 4 != 0), and on 32x72 or 64x72 frames (tiles off the 16-byte
+     grid: the scalar head and tail of the runs of 4),
      warp also at the DSE's affine parameters (which clamp at the
      border), and every stage of ``wami_cuda_parity_cases``; then, with
      TF32 products off, flash attention at every knob point of the fleet
@@ -27,8 +26,11 @@ which fails the run on any error:
      tests/test_kernels.py's shapes in both, its window and soft-cap
      cases and head dim 256 at the gemma blocks, the reference's four
      blockings (the spread across them printed), head dims 80, 128, 100,
-     50, 33, 20, 24, 200 and 250 (every general body), decode, and blocks
-     of 12 and 20 over 1,500 keys (max|d| < 2e-5 in f32, 2e-2 in bf16;
+     50, 33, 20, 24, 200 and 250 (every general body), decode, blocks
+     of 12 and 20 over 1,500 keys, and head dims 257, 320, 384, 512 and
+     513 (the wide body, a launch per 256-column slice of V, at every
+     native slice width; window, soft-cap, decode and ragged blocks at
+     the larger ones) (max|d| < 2e-5 in f32, 2e-2 in bf16;
      bf16 also against ``flash_tiled_ref``, which has the kernel's
      numerics with accurate exp and tanh), and the
      SSD scan at the fleet geometry (heads 1-8, chunks 8-64: chunk 8
@@ -43,9 +45,9 @@ which fails the run on any error:
      timed on the card) and ``exhaustive_dse`` over the same oracle; then
      ``fleet_cuda_session`` and its exhaustive baseline over one
      record-mode oracle (flash attention and the SSD scan timed).  Each
-     recording is replayed and must give the same front; the
-     change-detection, debayer and gradient walls per knob point print
-     beside those of their earlier kernels (``PREV_WALLS_US``); the
+     recording is replayed and must give the same front; the walls per
+     knob point of the redesigned WAMI kernels print beside those of
+     their earlier kernels (``PREV_WALLS_US``); the
      analytical fleet drive on the H100 chip table follows;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
@@ -57,10 +59,12 @@ which fails the run on any error:
      at 495 TFLOP/s of TF32, and its time per pass by torch.profiler).
      WAMI at tile 128 and 512x512 (with the per-call time a Python
      caller sees), the fleet kernels at the DSE's geometry (flash: also
-     its bound at the 3xTF32 rate, and SDPA under each backend) and at
-     model width (a gemma2-9b local layer at each of GEMMA_BLOCKS, with
-     ``flex_attention`` under ``torch.compile`` as its yardstick; a
-     mamba2-780m layer at chunk 64 and at its own chunk 256).
+     its bound at the 3xTF32 rate, and SDPA under each backend), at head
+     dim 512 (the wide body, f32 and bf16, beside SDPA's math backend)
+     and at model width (a gemma2-9b local layer at each of
+     GEMMA_BLOCKS, with ``flex_attention`` under ``torch.compile`` as its
+     yardstick; a mamba2-780m layer at chunk 64 and at its own chunk
+     256).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -106,6 +110,19 @@ def _close_err(got, want):
     """(max|d|, max|d| / max(1, max|want|)) of two tensors."""
     d = float((got.double() - want.double()).abs().max())
     return d, d / max(1.0, float(want.double().abs().max()))
+
+
+# Odd frames of grayscale and steepest descent, which with the knob
+# points of the 128 and 512 frames run every body of each
+# (csrc/wami_common.cuh's Run4Body): one pixel a thread (30 x 64 at
+# (4, 3); at (2, 5) too in grayscale), whole runs (30 x 64 at (1, 5);
+# staged stores in steepest descent), scalar throughout (30 x 66, W % 4
+# != 0, at (2, 15), above both one-pixel-a-thread limits), and runs
+# between a scalar head and tail (32 x 72's 18- and 9-column tiles, off
+# the 16-byte grid, at (4, 16) and (8, 32)).
+ODD_FRAMES_RUN4 = [((30, 64), [(2, 5), (1, 5), (4, 3)]),
+                   ((30, 66), [(11, 5), (2, 3), (1, 1), (2, 15)]),
+                   ((32, 72), [(4, 16), (8, 32), (4, 8)])]
 
 
 def kernel_table():
@@ -178,7 +195,8 @@ def kernel_table():
              replaces="src/repro/kernels/wami_debayer/kernel.py:70"),
         dict(name="wami_grayscale", stage="grayscale", op=Y.grayscale,
              ref=Y.grayscale_oracle, counter=Y.grayscale_kernel,
-             args=("rgb",), knobs=knobs, tol=1e-5,
+             args=("rgb",), knobs=knobs, tol=1e-5, exact=True,
+             odd_frames=ODD_FRAMES_RUN4,
              bytes_px=16, flops_px=5,
              library=lambda x: x["rgb"] @ x["lum"],
              source="src/repro_torch/csrc/wami_grayscale.cu",
@@ -197,7 +215,8 @@ def kernel_table():
         dict(name="wami_steepest_descent", stage="steep_descent",
              op=S.steepest_descent, ref=S.steepest_descent_oracle,
              counter=S.steepest_descent_kernel, args=("gx", "gy"),
-             knobs=sd_knobs, tol=1e-5, bytes_px=32, flops_px=4,
+             knobs=sd_knobs, tol=1e-5, exact=True,
+             odd_frames=ODD_FRAMES_RUN4, bytes_px=32, flops_px=4,
              library=None,
              source="src/repro_torch/csrc/wami_steep.cu",
              replaces="src/repro/kernels/wami_steep/kernel.py:56"),
@@ -443,8 +462,9 @@ def phase_dse(dev, table):
 # Walls of the WAMI DSE's recording with an earlier kernel, read by that
 # commit's chip_smoke.py (its --out JSON), in us per launch: change
 # detection's scalar kernel of commit 8a11b55 (one pixel a thread, at
-# most 256 threads a CTA), and debayer's and gradient's of commit
-# f6001f2 (the same design).
+# most 256 threads a CTA), debayer's and gradient's of commit f6001f2,
+# and grayscale's and steepest descent's of commit ba3ac6d (the same
+# design).
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_WALLS_US = {
     "change_det": ("the scalar design of commit 8a11b55", {
@@ -465,6 +485,17 @@ PREV_WALLS_US = {
         "p4:u8": 2.397, "p4:u16": 2.552, "p4:u32": 3.030, "p8:u8": 2.357,
         "p8:u16": 2.394, "p8:u32": 2.562, "p16:u16": 2.478,
         "p16:u32": 2.397}),
+    "grayscale": ("the scalar design of commit ba3ac6d", {
+        "p1:u1": 2.302, "p1:u2": 2.317, "p1:u4": 2.478, "p1:u8": 2.878,
+        "p1:u16": 3.858, "p1:u32": 5.722, "p2:u2": 2.294, "p2:u4": 2.296,
+        "p2:u8": 2.478, "p2:u16": 2.875, "p2:u32": 3.842, "p4:u4": 2.296,
+        "p4:u8": 2.306, "p4:u16": 2.469, "p4:u32": 2.904, "p8:u8": 2.290,
+        "p8:u16": 2.285, "p8:u32": 2.459, "p16:u16": 2.282, "p16:u32": 2.299}),
+    "steep_descent": ("the scalar design of commit ba3ac6d", {
+        "p1:u1": 2.296, "p1:u2": 2.790, "p1:u4": 3.285, "p1:u8": 4.203,
+        "p1:u16": 5.688, "p2:u2": 2.288, "p2:u4": 2.824, "p2:u8": 3.248,
+        "p2:u16": 4.219, "p4:u4": 2.485, "p4:u8": 2.829, "p4:u16": 3.277,
+        "p8:u8": 2.611, "p8:u16": 2.818}),
 }
 
 
@@ -543,6 +574,9 @@ GEMMA_LAYER = dict(B=1, S=4096, H=16, K=8, d=256, window=4096,
 # 8a11b55 ran at, then the larger ones the bf16 TMA ring allows
 GEMMA_BLOCKS = ((64, 32), (64, 64))
 MAMBA_LAYER = dict(Bz=1, S=4096, H=48, P=64, N=128, chunk=64)
+# a head dim above 256 (no config of the repository has one): the wide
+# body's timing row, causal, GQA 4:1, at 64 x 64 blocks
+WIDE_LAYER = dict(B=1, S=1024, H=8, K=2, d=512, block_q=64, block_kv=64)
 MAMBA_CHUNK = 256                # configs/mamba2_780m.py's ssm_chunk
 FLEET_KERNELS = (
     dict(name="flash_attention", stage="flash_attention",
@@ -730,6 +764,36 @@ def phase_fleet_parity(dev):
         q, k, v = _flash_inputs(dev, 1, 1500, 1500, 4, 4, 64, dtype, 13)
         flash(f"flash S 1500 blocks {blk} x {blk} non-causal {dtype}", q, k,
               v, causal=False, block_q=blk, block_kv=blk)
+
+    # head dims above 256: the wide body, one launch per slice of at most
+    # 256 of V's columns, at the slice's native width (257: 256 + 1, the
+    # last at D 32; 320: D 64; 384: D 128; 512: two at D 256; 513, odd:
+    # single-value stores), GQA, causal
+    for d in (257, 320, 384, 512, 513):
+        for dtype in BOTH:
+            q, k, v = _flash_inputs(dev, 2, 128, 128, 4, 2, d, dtype, 14)
+            flash(f"flash d {d} (4 on 2 heads, S 128) {dtype}", q, k, v,
+                  block_q=64, block_kv=64)
+    # ... with a window and soft-cap at 128-row blocks, decode, and
+    # non-causal blocks off the 16-row grid
+    for dtype in BOTH:
+        q, k, v = _flash_inputs(dev, 1, 256, 256, 8, 2, 512, dtype, 15)
+        flash(f"flash d 512 window 96 softcap 30 {dtype}", q, k, v,
+              window=96, softcap=30.0, block_q=128, block_kv=128)
+        q, k, v = _flash_inputs(dev, 2, 1, 256, 4, 2, 384, dtype, 16)
+        flash(f"flash decode d 384 Skv 256 {dtype}", q, k, v, q_offset=255)
+        q, k, v = _flash_inputs(dev, 1, 300, 300, 4, 4, 320, dtype, 17)
+        flash(f"flash d 320 S 300 blocks 20 x 12 non-causal {dtype}", q, k,
+              v, causal=False, block_q=20, block_kv=12)
+    # against the rehearsal of its decomposition (flash_tiled_ref: float32
+    # numerics, S over all d in 64-column 3xTF32 chunks)
+    q, k, v = _flash_inputs(dev, 2, 128, 128, 4, 2, 512, torch.float32, 14)
+    wide = _abs_err("flash d 512 against flash_tiled_ref",
+                    mha(q, k, v, block_q=64, block_kv=64),
+                    flash_tiled_ref(q, k, v, block_q=64, block_kv=64),
+                    FLASH_TOL["float32"])
+    print(f"[parity] flash f32 d 512 against flash_tiled_ref (the wide "
+          f"body's decomposition): max|d| {wide:.3g}", flush=True)
 
     # the SSD at the fleet geometry: heads 1-8, chunks 8-64
     _, sop, sref, sargs = fleet_cuda_parity_cases(SSD_S, dev)[1]
@@ -925,7 +989,7 @@ def _bound(nbytes, flops, peak):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _sdpa_backends(dev, q, k, v):
+def _sdpa_backends(dev, q, k, v, launches=TIME_LAUNCHES, reps=TIME_REPS):
     """Device ms of one SDPA call (causal, GQA) on the model layout's
     q, k, v under each backend ``sdpa_kernel`` can force; a backend that
     refuses the inputs gets the first line of its error."""
@@ -940,7 +1004,7 @@ def _sdpa_backends(dev, q, k, v):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
         try:
-            out[b.name] = _time_ms(dev, call)
+            out[b.name] = _time_ms(dev, call, launches, reps)
         except RuntimeError as exc:
             out[b.name] = "refused: " + (str(exc).strip().splitlines()
                                          or [""])[0][:160]
@@ -1089,6 +1153,17 @@ def phase_fleet_times(dev):
     for key, row in model.items():
         if key != "{}x{}".format(*GEMMA_BLOCKS[0]):
             out["flash_attention"][f"model {key}"] = row
+    # head dim 512 (the wide body: two launches of 256 columns of V)
+    # beside SDPA's math backend on the same inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        row, qkv = flash_row(f"d {WIDE_LAYER['d']} {dtype}", dtype=dtype,
+                             library=False, launches=5, reps=3,
+                             **WIDE_LAYER)
+        row["sdpa_backends_ms"] = _sdpa_backends(dev, *qkv, launches=5,
+                                                 reps=3)
+        row["library_ms"] = row["sdpa_backends_ms"]["MATH"]
+        out["flash_attention"][
+            f"d{WIDE_LAYER['d']} {str(dtype).split('.')[-1]}"] = row
     mamba = ssd_row("mamba2-780m layer", m["Bz"], m["S"], m["H"], m["P"],
                     m["N"], m["chunk"], launches=3, reps=3)
     out["ssd_scan"] = {
@@ -1218,7 +1293,7 @@ def main(argv=None) -> int:
         if "bound_3xtf32_ms" in t:
             entry["bound_3xtf32_ms"] = t["bound_3xtf32_ms"]
         for where, r in rows.items():
-            if where.startswith("model"):
+            if where.startswith(("model", f"d{WIDE_LAYER['d']}")):
                 entry[where.replace(" ", "_").replace("model", "model_width",
                                                       1)] = {
                     key: r[key] for key in keep if key in r}

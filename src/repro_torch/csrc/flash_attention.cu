@@ -92,7 +92,9 @@
 // 16-byte grid) takes no TMA (flash_plan's tma): the producer warp then
 // copies the tiles with 2-byte loads into the same swizzled layout,
 // fences them into the async proxy and arrives on the same mbarriers.
-// In f32 such a d copies with 4-byte cp.async.
+// In f32 such a d copies with 4-byte cp.async.  A head dim above 256
+// runs a third body, the wide one ("wide path" below), in slices of V's
+// columns.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -516,6 +518,214 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 make_float2(oacc[n][0] / l0, oacc[n][1] / l0);
             *reinterpret_cast<float2*>(o1 + 8 * n + 2 * t) =
                 make_float2(oacc[n][2] / l1, oacc[n][3] / l1);
+        }
+    }
+}
+
+// ---------------------------------------------------------- wide path
+// Head dims above 256, either type: one launch per slice [c0, c0 + dv)
+// of V's and O's columns, dv <= 256, at the slice's native width DV.
+// Each computes the whole S = (q * scale) . k^T over all d columns, so
+// the softmax, and with it the slices, are exact; O stays within a
+// thread's registers (DV / 2 floats).  A CTA is the f32 body's: a warp
+// per 16 query rows, 3xTF32 mma.sync for both products, the online
+// softmax on S's C fragments; the KV walk takes 16-row tiles.  Per KV
+// tile it stages kWideChunk columns of the Q tile and of the K tile at
+// a time (zero past d, Sq and Skv), converted to float32, accumulates S
+// over the chunks, and stages the slice's V tile with the last chunk.
+// Plain loads, kWideBatch of them in flight a thread, and two
+// __syncthreads per chunk: a correct body for a shape no config of the
+// repository has, not a fast one.
+constexpr int kWideChunk = 64;      // q/k columns a stage holds
+constexpr int kWideKV = 16;         // KV rows a step
+constexpr int kWideBatch = 8;       // staging loads a thread has in flight
+
+// Shared memory in floats: the Q and K chunks (tile_q + 16 rows of
+// kWideChunk + kPad) and the V tile (16 rows of DV + kPad)
+__host__ __device__ __forceinline__ long long wide_smem_floats(int DV,
+                                                               int bq) {
+    return ((long long)bq + kWideKV) * (kWideChunk + kPad)
+           + (long long)kWideKV * (DV + kPad);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+}
+
+template <class T, int DV>
+__global__ void __launch_bounds__(256)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int Sq,
+                  int Skv, int H, int K, int d, int c0, int dv, int bq,
+                  float scale, int causal, int window, float softcap,
+                  int q_offset) {
+    constexpr int LC = kWideChunk + kPad, LV = DV + kPad;
+    constexpr int NT = kWideKV / 8;        // 8-column tiles of S
+    constexpr int ND = DV / 8;             // 8-column tiles of O
+    extern __shared__ float4 smem4[];
+    float* Qs = reinterpret_cast<float*>(smem4);
+    float* Ks = Qs + bq * LC;
+    float* Vs = Ks + kWideKV * LC;
+
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int qblk = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    const int q0 = qblk * bq, h = blockIdx.y, b = blockIdx.z;
+    const int qrows = min(bq, Sq - q0);    // rows below Sq
+    const int kh = h / (H / K);
+    const long long q_tok = (long long)H * d, kv_tok = (long long)K * d;
+    const T* qb = q + ((long long)b * Sq + q0) * q_tok + (long long)h * d;
+    T* ob = o + ((long long)b * Sq + q0) * q_tok + (long long)h * d + c0;
+    const T* kb = k + (long long)b * Skv * kv_tok + (long long)kh * d;
+    const T* vb = v + (long long)b * Skv * kv_tok + (long long)kh * d + c0;
+
+    int kb_lo, kb_hi;
+    kv_range(q0 + q_offset, q0 + qrows - 1 + q_offset,
+             (Skv + kWideKV - 1) / kWideKV, kWideKV, causal, window, kb_lo,
+             kb_hi);
+    const int r0 = warp * 16;              // the warp's first row
+    const int pos0 = q0 + r0 + g + q_offset;   // position of row g
+    const int wlo = q0 + r0 + q_offset, whi = wlo + 15;
+    float oacc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+    for (int kbi = kb_lo; kbi < kb_hi; ++kbi) {
+        const int k0 = kbi * kWideKV, valid = min(kWideKV, Skv - k0);
+        const BlockMask bm(wlo, whi, k0, kWideKV, Skv, causal, window);
+        float sacc[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sacc[j][e] = 0.0f;
+        for (int c = 0; c < d; c += kWideChunk) {
+            __syncthreads();               // every warp is done with them
+            // rows [0, bq) of Qs, then the 16 of Ks: kWideBatch loads in
+            // flight a thread, then their stores
+            const int n_qk = (bq + kWideKV) * kWideChunk;
+            for (int e0 = tid; e0 < n_qk; e0 += kWideBatch * nthr) {
+                float x[kWideBatch];
+#pragma unroll
+                for (int i = 0; i < kWideBatch; ++i) {
+                    const int e = e0 + i * nthr, r = e / kWideChunk;
+                    const int col = c + e % kWideChunk, rk = r - bq;
+                    x[i] = 0.0f;
+                    if (e < n_qk && col < d) {
+                        if (r < qrows)
+                            x[i] = to_f32(qb[r * q_tok + col]);
+                        else if (r >= bq && rk < valid)
+                            x[i] = to_f32(kb[(k0 + rk) * kv_tok + col]);
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < kWideBatch; ++i) {
+                    const int e = e0 + i * nthr;
+                    if (e < n_qk)   // rows past bq land in Ks, right after
+                        Qs[e / kWideChunk * LC + e % kWideChunk] = x[i];
+                }
+            }
+            if (c + kWideChunk >= d) {     // the slice's V tile
+                for (int e0 = tid; e0 < kWideKV * DV;
+                     e0 += kWideBatch * nthr) {
+                    float x[kWideBatch];
+#pragma unroll
+                    for (int i = 0; i < kWideBatch; ++i) {
+                        const int e = e0 + i * nthr, r = e / DV;
+                        const int col = e - r * DV;
+                        x[i] = e < kWideKV * DV && r < valid && col < dv
+                            ? to_f32(vb[(k0 + r) * kv_tok + col]) : 0.0f;
+                    }
+#pragma unroll
+                    for (int i = 0; i < kWideBatch; ++i) {
+                        const int e = e0 + i * nthr;
+                        if (e < kWideKV * DV) Vs[e / DV * LV + e % DV] = x[i];
+                    }
+                }
+            }
+            __syncthreads();
+            if (bm.dead) continue;
+#pragma unroll 2
+            for (int kk = 0; kk < kWideChunk / 8; ++kk) {
+                const float* qr = Qs + (r0 + g) * LC + 8 * kk + t;
+                uint32_t ab[4], as[4];
+                split_tf32(qr[0] * scale, ab[0], as[0]);
+                split_tf32(qr[8 * LC] * scale, ab[1], as[1]);
+                split_tf32(qr[4] * scale, ab[2], as[2]);
+                split_tf32(qr[8 * LC + 4] * scale, ab[3], as[3]);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    const float* kr = Ks + (8 * j + g) * LC + 8 * kk + t;
+                    uint32_t bb[2], bs[2];
+                    split_tf32(kr[0], bb[0], bs[0]);
+                    split_tf32(kr[4], bb[1], bs[1]);
+                    mma_3xtf32(sacc[j], ab, as, bb, bs);
+                }
+            }
+        }
+        if (bm.dead) continue;
+        float p[NT * 4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p[4 * j + e] = sacc[j][e];
+        float corr[2];
+        online_softmax<NT, false, true>(p, 1.0f, softcap, !bm.full, pos0,
+                                        k0 + 2 * t, Skv, causal, window, m,
+                                        l, corr);
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+            oacc[n][0] *= corr[0];
+            oacc[n][1] *= corr[0];
+            oacc[n][2] *= corr[1];
+            oacc[n][3] *= corr[1];
+        }
+        // O += P . V, as in the f32 body
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            uint32_t ab[4], as[4];
+            split_tf32(p[4 * jj + 0], ab[0], as[0]);
+            split_tf32(p[4 * jj + 2], ab[1], as[1]);
+            split_tf32(p[4 * jj + 1], ab[2], as[2]);
+            split_tf32(p[4 * jj + 3], ab[3], as[3]);
+            const float* vr = Vs + (8 * jj + 2 * t) * LV + g;
+#pragma unroll
+            for (int n = 0; n < ND; ++n) {
+                uint32_t bb[2], bs[2];
+                split_tf32(vr[8 * n], bb[0], bs[0]);
+                split_tf32(vr[LV + 8 * n], bb[1], bs[1]);
+                mma_3xtf32(oacc[n], ab, as, bb, bs);
+            }
+        }
+    }
+
+    // O's slice columns below dv; pairs where d is even (then every
+    // row and c0 are too), single values where it is odd
+    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    const int row = r0 + g;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+        const int c = 8 * n + 2 * t;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int rr = row + 8 * half;
+            if (rr >= qrows || c >= dv) continue;
+            const float li = half ? l1 : l0;
+            T* dst = ob + rr * q_tok;
+            if ((d & 1) == 0) {
+                store_pair(dst, c, dv, oacc[n][2 * half] / li,
+                           oacc[n][2 * half + 1] / li);
+            } else {
+                put(dst + c, oacc[n][2 * half] / li);
+                if (c + 1 < dv) put(dst + c + 1, oacc[n][2 * half + 1] / li);
+            }
         }
     }
 }
@@ -1212,6 +1422,37 @@ int launch_bf16(const Args& a) {
     return static_cast<int>(cudaGetLastError());
 }
 
+template <class T, int DV>
+int launch_wide(const Args& a, int c0, int dv) {
+    auto kern = flash_wide_kernel<T, DV>;
+    static long long opted = 48 * 1024;
+    const long long smem = wide_smem_floats(DV, a.bq) * 4;
+    const cudaError_t err = opt_in(kern, smem, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<dim3((a.Sq + a.bq - 1) / a.bq, a.H, a.B), 2 * a.bq, smem,
+           a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.Sq, a.Skv, a.H,
+        a.K, a.d, c0, dv, a.bq, a.scale, a.causal, a.window, a.softcap,
+        a.q_offset);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// d > 256: a launch per slice of at most 256 columns of V and O, each at
+// the least native width that holds it
+template <class T>
+int launch_wide_slices(const Args& a) {
+    for (int c0 = 0; c0 < a.d; c0 += 256) {
+        const int dv = a.d - c0 < 256 ? a.d - c0 : 256;
+        const int err = dv <= 32    ? launch_wide<T, 32>(a, c0, dv)
+                        : dv <= 64  ? launch_wide<T, 64>(a, c0, dv)
+                        : dv <= 128 ? launch_wide<T, 128>(a, c0, dv)
+                                    : launch_wide<T, 256>(a, c0, dv);
+        if (err != 0) return err;
+    }
+    return 0;
+}
+
 // The instantiated bodies.  Exact (whole tiles of both sequences, d ==
 // D, 16-byte aligned tensors, in bf16 K/V by TMA): the (D, tile_kv)
 // pairs whose staging can fit the card at some tile_q (f32: D 128 up to
@@ -1273,7 +1514,9 @@ int dispatch(const Args& a, int bf16, int bkv, int general) {
 
 // q: (B, Sq, H, d); k, v: (B, Skv, K, d); o: (B, Sq, H, d); all
 // contiguous, float32 (bf16 == 0) or bfloat16 (bf16 == 1).  D is the
-// native head dim the call runs at (32, 64, 128 or 256, d <= D), tile_q
+// native head dim the call runs at (32, 64, 128 or 256, d <= D; above
+// d 256, D = 256 and the wide body runs in slices, with general = 1,
+// tile_kv = 16 and tma = 0), tile_q
 // the query rows a CTA takes (a multiple of 16 up to 128; 64 in bf16 at
 // D 256), tile_kv the KV rows of a step (16, 32, 64 or 128), general
 // the body (0: the exact one, which needs whole tiles, d == D and
@@ -1289,14 +1532,19 @@ KERNEL_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                       int window, float softcap,
                                       int q_offset, float scale,
                                       void* stream) {
-    if (tile_q % 16 || tile_q < 16 || tile_q > 128 || d < 1 || d > D
-        || Sq < 1 || Skv < 1 || K < 1 || H % K
+    const bool wide = d > D;
+    if (tile_q % 16 || tile_q < 16 || tile_q > 128 || d < 1 || Sq < 1
+        || Skv < 1 || K < 1 || H % K
+        || (wide && (D != 256 || !general || tile_kv != 16 || tma))
         || (tma && (!bf16 || d % 8 || !aligned16(q) || !aligned16(k)
                     || !aligned16(v))))
         return static_cast<int>(cudaErrorInvalidValue);
     const Args a{q, k, v, o, B, Sq, Skv, H, K, d, tile_q, causal, window,
                  softcap, q_offset, scale, tma != 0,
                  static_cast<cudaStream_t>(stream)};
+    if (wide)
+        return bf16 ? launch_wide_slices<__nv_bfloat16>(a)
+                    : launch_wide_slices<float>(a);
     switch (D) {
         case 32: return dispatch<32>(a, bf16, tile_kv, general);
         case 64: return dispatch<64>(a, bf16, tile_kv, general);

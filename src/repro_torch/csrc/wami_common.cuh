@@ -6,8 +6,9 @@
 // in row-major order, so neighbouring threads touch neighbouring pixels:
 // one pixel a thread, at most 256 threads a CTA (wami_threads), or one
 // run of 4 adjacent pixels a thread, at most 1,024 (RowSplit,
-// run4_threads).  Every entry point launches on the stream it is given,
-// allocates nothing, and returns cudaGetLastError().
+// run4_threads; the bodies of Run4Body).  Every entry point launches on
+// the stream it is given, allocates nothing, and returns
+// cudaGetLastError().
 #pragma once
 
 #include "kernel_export.cuh"
@@ -73,4 +74,52 @@ __device__ __forceinline__ void ld4(float* d, const float* s) {
 
 __device__ __forceinline__ void st4(float* d, const float* s) {
     *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+}
+
+// The bodies of a kernel that takes a run of 4 pixels a thread, picked
+// by its entry point from the tile (run4_body): kScalar, one pixel a
+// thread; kMixed, runs with a scalar head and tail (or every pixel
+// scalar when !vec); kRuns, every tile row whole runs (vec and bw % 4
+// == 0), the scalar path compiled out; and kStaged, kRuns where a warp
+// whose 32 lanes all take runs moves the wide side of its runs (debayer's
+// RGB, the six sd images) through shared memory in warp order, 48 bytes
+// a thread (blockDim.x * 48 bytes a CTA).
+enum Run4Body { kScalar, kMixed, kRuns, kStaged };
+
+// kScalar up to scalar_px pixels a tile, else kStaged from stage_px
+// pixels where every tile row is whole runs (kNoStaging: never), kRuns
+// below, and kMixed where a row is not whole runs
+constexpr int kNoStaging = 1 << 30;
+static inline Run4Body run4_body(int bh, int bw, bool vec, int scalar_px,
+                                 int stage_px) {
+    if (bh * bw <= scalar_px) return kScalar;
+    if (!vec || bw % 4 != 0) return kMixed;
+    return bh * bw >= stage_px ? kStaged : kRuns;
+}
+
+// A tile row's split under body B (vec: see row_split)
+template <int B>
+__device__ __forceinline__ RowSplit body_split(const WamiTile& t,
+                                               bool vec) {
+    return B == kRuns || B == kStaged ? RowSplit{0, t.bw / 4, 0}
+           : B == kScalar             ? RowSplit{t.bw, 0, 0}
+                                      : row_split(t.col0, t.bw, vec);
+}
+
+// Work item e of a CTA under body B whose rows split as rs, with n_runs
+// = bh * rs.runs: its tile row r and first column c; true for a run of
+// 4, false for one scalar pixel (the runs of every row come first)
+template <int B>
+__device__ __forceinline__ bool run4_item(int e, const RowSplit& rs,
+                                          int n_runs, int& r, int& c) {
+    if (B == kRuns || B == kStaged || (B == kMixed && e < n_runs)) {
+        r = e / rs.runs;
+        c = rs.head + 4 * (e - r * rs.runs);
+        return true;
+    }
+    const int s = e - n_runs, n_scalar = rs.head + rs.tail;
+    r = s / n_scalar;
+    const int k = s - r * n_scalar;
+    c = k < rs.head ? k : k + 4 * rs.runs;
+    return false;
 }

@@ -46,8 +46,8 @@
 
 namespace {
 
-// tiles of at most this many pixels take one pixel a thread
-constexpr int kScalarPixels = 256;
+constexpr int kScalarPixels = 256;  // tiles up to this: one pixel a thread
+constexpr int kStagePixels = 1024;  // tiles from this: staged stores
 
 // reflect padding by one pixel: -1 -> 1, n -> n - 2
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -81,47 +81,30 @@ __device__ __forceinline__ void debayer_px(int y, int x, const float* u,
     }
 }
 
-// The bodies: kScalar, one pixel a thread; kMixed, runs with a scalar
-// head and tail (or every pixel scalar when !vec); kRuns, every tile row
-// whole runs (vec and bw % 4 == 0), the scalar path compiled out; and
-// kStaged, kRuns where a warp whose lanes all take runs writes its 32
-// runs' 96 float4 of RGB in order through shared memory (blockDim.x * 48
-// bytes), lane l storing float4 l, l + 32 and l + 64: 512 contiguous
-// bytes a store where a run's own three stores stride 48 bytes across
-// the warp.
-enum Body { kScalar, kMixed, kRuns, kStaged };
-
+// The bodies (Run4Body, wami_common.cuh); kStaged writes a warp's 32
+// runs' 96 float4 of RGB in order, lane l storing float4 l, l + 32 and
+// l + 64: 512 contiguous bytes a store where a run's own three stores
+// stride 48 bytes across the warp.
 template <int BODY>
 __global__ void __launch_bounds__(1024)
 debayer_kernel(const float* __restrict__ bayer, float* __restrict__ rgb,
                int H, int W, int bh, int bw, int vec) {
-    constexpr bool ALIGNED = BODY == kRuns || BODY == kStaged;
-    constexpr bool SCALAR = BODY == kScalar, STAGE = BODY == kStaged;
     const WamiTile t(bh, bw);
-    const RowSplit rs = ALIGNED  ? RowSplit{0, bw / 4, 0}
-                        : SCALAR ? RowSplit{bw, 0, 0}
-                                 : row_split(t.col0, bw, vec != 0);
-    const int n_runs = bh * rs.runs, n_scalar = rs.head + rs.tail;
-    const int items = ALIGNED ? n_runs : n_runs + bh * n_scalar;
+    const RowSplit rs = body_split<BODY>(t, vec != 0);
+    const int n_runs = bh * rs.runs;
+    const int items = BODY == kRuns || BODY == kStaged
+                      ? n_runs : n_runs + bh * (rs.head + rs.tail);
     extern __shared__ float4 stage4[];
     const int lane = threadIdx.x & 31;
     float* sb = reinterpret_cast<float*>(stage4) + (threadIdx.x - lane) * 12;
     for (int e = threadIdx.x; e < items; e += blockDim.x) {
         int r, c;
-        if (!SCALAR && (ALIGNED || e < n_runs)) {
-            r = e / rs.runs;
-            c = rs.head + 4 * (e - r * rs.runs);
-        } else {
-            const int s = e - n_runs;
-            r = s / n_scalar;
-            const int k = s - r * n_scalar;
-            c = k < rs.head ? k : k + 4 * rs.runs;
-        }
+        const bool run = run4_item<BODY>(e, rs, n_runs, r, c);
         const int y = t.row0 + r, x = t.col0 + c;
         const float* up = bayer + (long long)reflect(y - 1, H) * W;
         const float* mid = bayer + (long long)y * W;
         const float* dn = bayer + (long long)reflect(y + 1, H) * W;
-        if (!SCALAR && (ALIGNED || e < n_runs)) {
+        if (run) {
             // columns x - 1 .. x + 4 of each row: neighbour, run, neighbour
             const int xl = reflect(x - 1, W), xr = reflect(x + 4, W);
             float u[6], m[6], d[6];
@@ -139,7 +122,7 @@ debayer_kernel(const float* __restrict__ bayer, float* __restrict__ rgb,
             for (int i = 0; i < 4; ++i)
                 debayer_px(y, x + i, u + i, m + i, d + i, o + 3 * i);
             const long long off = 3 * ((long long)y * W + x);
-            if (STAGE && e - lane + 32 <= n_runs) {
+            if (BODY == kStaged && e - lane + 32 <= n_runs) {
                 st4(sb + 12 * lane, o);
                 st4(sb + 12 * lane + 4, o + 4);
                 st4(sb + 12 * lane + 8, o + 8);
@@ -184,17 +167,23 @@ WAMI_EXPORT int wami_debayer(const float* bayer, float* rgb, int H, int W,
     const dim3 grid(H / unrolls, ports);
     const int threads = run4_threads(ports, bh, bw, vec);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bh * bw <= kScalarPixels)
-        debayer_kernel<kScalar><<<grid, wami_threads(bh * bw), 0, s>>>(
-            bayer, rgb, H, W, bh, bw, 0);
-    else if (vec && bw % 4 == 0 && bh * bw >= 1024)
-        debayer_kernel<kStaged><<<grid, threads, threads * 48, s>>>(
-            bayer, rgb, H, W, bh, bw, 1);
-    else if (vec && bw % 4 == 0)
-        debayer_kernel<kRuns><<<grid, threads, 0, s>>>(bayer, rgb, H, W, bh,
-                                                       bw, 1);
-    else
-        debayer_kernel<kMixed><<<grid, threads, 0, s>>>(
-            bayer, rgb, H, W, bh, bw, vec ? 1 : 0);
+    switch (run4_body(bh, bw, vec, kScalarPixels, kStagePixels)) {
+        case kScalar:
+            debayer_kernel<kScalar><<<grid, wami_threads(bh * bw), 0, s>>>(
+                bayer, rgb, H, W, bh, bw, 0);
+            break;
+        case kStaged:
+            debayer_kernel<kStaged><<<grid, threads, threads * 48, s>>>(
+                bayer, rgb, H, W, bh, bw, 1);
+            break;
+        case kRuns:
+            debayer_kernel<kRuns><<<grid, threads, 0, s>>>(bayer, rgb, H, W,
+                                                           bh, bw, 1);
+            break;
+        case kMixed:
+            debayer_kernel<kMixed><<<grid, threads, 0, s>>>(
+                bayer, rgb, H, W, bh, bw, vec ? 1 : 0);
+            break;
+    }
     return static_cast<int>(cudaGetLastError());
 }

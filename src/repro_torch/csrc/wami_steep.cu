@@ -9,9 +9,28 @@
 //     peaks, 700 W limit): bytes, 8 B read and 24 B written per pixel
 //     (524,288 B at tile 128: 0.16 us at 3.35 TB/s; 8.4 MB at 512 x 512:
 //     2.5 us).  The pixel coordinates come from blockIdx and the tile
-//     offsets, so no coordinate plane is read, and the six results of a
-//     pixel are one 24-byte run (a warp writes one contiguous 768-byte
-//     run).
+//     offsets, so no coordinate plane is read.  A thread owns a run of 4
+//     adjacent pixels of a row (Run4Body, wami_common.cuh): one 16-byte
+//     load from gx and one from gy, and the run's 24 results are 96
+//     contiguous bytes of the output, six 16-byte stores; a CTA takes up
+//     to 1,024 threads (run4_threads), so every Table-1 tile of the
+//     128 x 128 frame is one pass and of the 512 x 512 frame at most two.
+//     A thread's own six stores stride 96 bytes across the warp, so
+//     above kScalarPixels pixels a tile, wherever every tile row is whole
+//     runs, the warp stages them through shared memory in two halves, 48
+//     bytes a thread (blockDim.x * 48 bytes a CTA, within the 48 KB a
+//     launch gets without opting in): lanes 16 h .. 16 h + 15 write
+//     their 24 floats, and the whole warp stores those 16 runs' 96 float4
+//     in order, 512 contiguous bytes a store.  Tiles of at most
+//     kScalarPixels pixels take one pixel a thread, and a row's pixels off
+//     the runs (a tile off the 16-byte grid, W % 4 != 0, a pointer off the
+//     grid) the scalar path.  Measured on an H100 (DSE walls, two runs
+//     each): staged stores against direct ones 0.3-0.35 us faster a launch
+//     at 512 pixels a tile, 0.8-1.8 us at 1,024-2,048, and 512 x 512 at
+//     (1, 8) 4.8 against 10.1 us; at 256 pixels staged runs were 0.03-0.26
+//     us faster than one pixel a thread, at 128 pixels 0.17-0.22 us slower
+//     at two of four points.  Each result is one product or a copy: the
+//     same bits as the plain version.
 //
 //   hessian_kernel -> wami_hessian:
 //     H = sum_x sd(x) sd(x)^T, (6, 6).  Bound on an H100 SXM (published
@@ -31,6 +50,8 @@
 //     same bits from run to run; it depends on the knobs only through the
 //     partition.  One launch, where two launches' latency set the time of
 //     the earlier two-pass design at tile 128.
+#include <cstdint>
+
 #include "wami_common.cuh"
 
 namespace {
@@ -45,24 +66,75 @@ __host__ __device__ constexpr int sym_index(int a, int b) {
     return a * 6 - a * (a - 1) / 2 + (b - a);
 }
 
-__global__ void steepest_descent_kernel(const float* __restrict__ gx,
-                                        const float* __restrict__ gy,
-                                        float* __restrict__ sd, int W,
-                                        int bh, int bw) {
+constexpr int kScalarPixels = 128;  // tiles up to this: one pixel a thread
+
+// the six sd images of a pixel at (xf, yf) with gradients (a, b)
+__device__ __forceinline__ void sd_px(float a, float b, float xf, float yf,
+                                      float* o) {
+    o[0] = a * xf;
+    o[1] = a * yf;
+    o[2] = a;
+    o[3] = b * xf;
+    o[4] = b * yf;
+    o[5] = b;
+}
+
+template <int BODY>
+__global__ void __launch_bounds__(1024)
+steepest_descent_kernel(const float* __restrict__ gx,
+                        const float* __restrict__ gy,
+                        float* __restrict__ sd, int W, int bh, int bw,
+                        int vec) {
     const WamiTile t(bh, bw);
-    for (int e = threadIdx.x; e < t.pixels(); e += blockDim.x) {
-        const int r = e / bw, c = e - r * bw;
+    const RowSplit rs = body_split<BODY>(t, vec != 0);
+    const int n_runs = bh * rs.runs;
+    const int items = BODY == kStaged ? n_runs
+                                      : n_runs + bh * (rs.head + rs.tail);
+    extern __shared__ float4 stage4[];
+    const int lane = threadIdx.x & 31;
+    float* sb = reinterpret_cast<float*>(stage4) + (threadIdx.x - lane) * 12;
+    for (int e = threadIdx.x; e < items; e += blockDim.x) {
+        int r, c;
+        const bool run = run4_item<BODY>(e, rs, n_runs, r, c);
+        const int x = t.col0 + c;
         const float yf = static_cast<float>(t.row0 + r);
-        const float xf = static_cast<float>(t.col0 + c);
-        const long long p = (long long)(t.row0 + r) * W + t.col0 + c;
-        const float a = gx[p], b = gy[p];
-        float* o = sd + 6 * p;
-        o[0] = a * xf;
-        o[1] = a * yf;
-        o[2] = a;
-        o[3] = b * xf;
-        o[4] = b * yf;
-        o[5] = b;
+        const long long p = (long long)(t.row0 + r) * W + x;
+        if (run) {
+            float a[4], b[4], o[24];
+            ld4(a, gx + p);
+            ld4(b, gy + p);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                sd_px(a[i], b[i], static_cast<float>(x + i), yf, o + 6 * i);
+            const long long off = 6 * p;
+            if (BODY == kStaged && e - lane + 32 <= n_runs) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    if ((lane >> 4) == h) {
+#pragma unroll
+                        for (int k = 0; k < 6; ++k)
+                            st4(sb + 24 * (lane & 15) + 4 * k, o + 4 * k);
+                    }
+                    __syncwarp();
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) {
+                        const int f = lane + 32 * k, run_f = f / 6;
+                        const long long at =
+                            __shfl_sync(0xffffffffu, off, 16 * h + run_f);
+                        *reinterpret_cast<float4*>(sd + at
+                                                   + 4 * (f - 6 * run_f)) =
+                            *reinterpret_cast<const float4*>(sb + 4 * f);
+                    }
+                    __syncwarp();
+                }
+            } else {
+#pragma unroll
+                for (int k = 0; k < 6; ++k) st4(sd + off + 4 * k, o + 4 * k);
+            }
+        } else {
+            sd_px(__ldg(gx + p), __ldg(gy + p), static_cast<float>(x), yf,
+                  sd + 6 * p);
+        }
     }
 }
 
@@ -154,15 +226,38 @@ hessian_kernel(const float* __restrict__ sd, float* __restrict__ partials,
 }  // namespace
 
 // gx, gy: (H, W) float32 -> sd: (H, W, 6) float32; W % ports == 0 and
-// H % unrolls == 0 (checked by the Python wrapper).
+// H % unrolls == 0 (checked by the Python wrapper).  Threads per CTA: one
+// a pixel up to kScalarPixels pixels a tile, else run4_threads
+// (wami_common.cuh) -- kernels/wami_steep/kernel.py's
+// steepest_descent_geometry is the same formula.
 WAMI_EXPORT int wami_steepest_descent(const float* gx, const float* gy,
                                       float* sd, int H, int W, int ports,
                                       int unrolls, void* stream) {
     const int bh = unrolls, bw = W / ports;
+    const bool vec = W % 4 == 0
+                     && ((reinterpret_cast<uintptr_t>(gx)
+                          | reinterpret_cast<uintptr_t>(gy)
+                          | reinterpret_cast<uintptr_t>(sd)) & 15) == 0;
     const dim3 grid(H / unrolls, ports);
-    steepest_descent_kernel<<<grid, wami_threads(bh * bw), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        gx, gy, sd, W, bh, bw);
+    const int threads = run4_threads(ports, bh, bw, vec);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // whole runs above kScalarPixels always stage (stage_px 0)
+    switch (run4_body(bh, bw, vec, kScalarPixels, 0)) {
+        case kScalar:
+            steepest_descent_kernel<kScalar>
+                <<<grid, wami_threads(bh * bw), 0, s>>>(gx, gy, sd, W, bh,
+                                                         bw, 0);
+            break;
+        case kStaged:
+            steepest_descent_kernel<kStaged>
+                <<<grid, threads, threads * 48, s>>>(gx, gy, sd, W, bh, bw,
+                                                     1);
+            break;
+        default:
+            steepest_descent_kernel<kMixed><<<grid, threads, 0, s>>>(
+                gx, gy, sd, W, bh, bw, vec ? 1 : 0);
+            break;
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,8 @@ runs 3xTF32 ``mma.sync`` on cp.async double buffers.  Each body is built
 for a few native head dims and tiles; :func:`flash_plan` maps any head
 dim up to 256 and any blocks that divide their sequences onto them (the
 mapping is exact: see its docstring), and :func:`flash_smem_bytes` is
-the C source's staging formula.
+the C source's staging formula.  A head dim above 256 runs the wide
+body in slices of V's columns (:func:`flash_wide_smem_bytes`).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from ..build import (CudaKernel, current_stream, require_cuda_tensor,
                      smem_optin)
 
 __all__ = ["flash_attention_kernel", "flash_attention_cuda",
-           "flash_smem_bytes", "flash_plan", "FlashPlan", "HEAD_DIMS",
-           "BLOCK_KVS", "MAX_BLOCK_Q", "H100_SMEM_OPTIN"]
+           "flash_smem_bytes", "flash_wide_smem_bytes", "flash_plan",
+           "FlashPlan", "HEAD_DIMS", "BLOCK_KVS", "MAX_BLOCK_Q",
+           "WIDE_CHUNK", "H100_SMEM_OPTIN"]
 
 HEAD_DIMS = (32, 64, 128, 256)      # the native head dims of both bodies
 BLOCK_KVS = (16, 32, 64, 128)       # the native KV tiles
@@ -32,6 +34,7 @@ H100_SMEM_OPTIN = 232448            # an H100's opt-in shared memory a block
 _DTYPES = (torch.float32, torch.bfloat16)
 _PAD = 4                            # floats of padding per staged f32 row
 _STAGES = 2                         # the bf16 path's ring of K/V tiles
+WIDE_CHUNK = 64                     # q/k columns the wide body stages
 
 # q, k, v, o; B, Sq, Skv, H, K, d, D, bf16, tile_q, tile_kv, general,
 # tma, causal, window; softcap; q_offset; scale; stream
@@ -55,15 +58,34 @@ def flash_smem_bytes(d: int, block_q: int, block_kv: int,
     return 4 * (block_q + 2 * 2 * block_kv) * (d + _PAD)
 
 
+def flash_wide_smem_bytes(D: int, block_q: int) -> int:
+    """Shared memory one CTA of the wide body (d > 256) stages for a
+    slice of V of native width ``D``, in either type: :data:`WIDE_CHUNK`
+    columns of the Q tile and of a 16-row K tile, and the slice's 16-row
+    V tile, as float32 rows padded by 4 floats."""
+    return 4 * ((block_q + BLOCK_KVS[0]) * (WIDE_CHUNK + _PAD)
+                + BLOCK_KVS[0] * (D + _PAD))
+
+
+def _tile_q(block_q: int, max_q: int) -> int:
+    """The largest multiple of 16 up to ``max_q`` that divides
+    ``block_q``, else the multiple of 16 it rounds up to (at most
+    ``max_q``)."""
+    return next((n for n in range(max_q, 0, -16) if block_q % n == 0),
+                min(-(-block_q // 16) * 16, max_q))
+
+
 class FlashPlan(NamedTuple):
     """How one call runs: the body, its native head dim ``D`` (columns
     d..D zero-filled as they load, never stored), ``tile_q`` query rows
     per CTA, ``tile_kv`` KV rows per step of the online softmax over
     ``n_kv`` steps, the CTA's staged bytes, whether K/V come by TMA (bf16
-    with d % 8 == 0 on aligned tensors), and whether the general body
-    runs (``general``: a last tile past Sq or Skv, d below D, or tensors
-    off the 16-byte grid).  The C entry point runs this choice and
-    refuses one its bodies cannot take."""
+    with d % 8 == 0 on aligned tensors), whether the general body runs
+    (``general``: a last tile past Sq or Skv, d below D, or tensors off
+    the 16-byte grid), and in how many ``slices`` of V's columns, one
+    launch each: 1 up to d 256; above it ceil(d / 256), each slice at
+    most D = 256 wide and run by the wide body.  The C entry point runs
+    this choice and refuses one its bodies cannot take."""
     body: str
     D: int
     tile_q: int
@@ -72,6 +94,7 @@ class FlashPlan(NamedTuple):
     smem: int
     tma: bool
     general: bool
+    slices: int
 
 
 def flash_plan(d: int, Sq: int, Skv: int, block_q: int, block_kv: int,
@@ -97,17 +120,36 @@ def flash_plan(d: int, Sq: int, Skv: int, block_q: int, block_kv: int,
     bf16, tile_q <= 64) only.
     Rows are independent and the online softmax is exact, so the tiles
     move only the float rounding (the reference's blockings agree within
-    1e-5).  Raises ``ValueError`` for d > 256 or blocks below 1."""
-    if not 1 <= d <= HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {d}: the kernel takes 1..{HEAD_DIMS[-1]}")
+    1e-5).
+
+    A head dim above 256 runs as ceil(d / 256) launches of the wide
+    body, each over a slice of at most 256 of V's and O's columns: each
+    computes the whole S = (q * scale) . k^T over all d columns, in
+    chunks of :data:`WIDE_CHUNK` staged through shared memory, and its
+    slice of O at the slice's native width, so O stays within a thread's
+    registers.  The softmax is the same in every slice, so the slices
+    are exact.  Inputs of either type are staged as float32 and both
+    products are 3xTF32; the tiles are those of the general body (16 KV
+    rows; tile_q as above, up to 128 in both types).  Raises
+    ``ValueError`` for d or blocks below 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d} must be >= 1")
     if block_q < 1 or block_kv < 1:
         raise ValueError(f"blocks ({block_q}, {block_kv}) must be >= 1")
     bf16 = dtype == torch.bfloat16
+    body = "bf16" if bf16 else "f32"
+    if d > HEAD_DIMS[-1]:
+        tile_q = _tile_q(block_q, MAX_BLOCK_Q)
+        smem = flash_wide_smem_bytes(HEAD_DIMS[-1], tile_q)
+        if smem > smem_cap:
+            raise ValueError(f"head dim {d} stages {smem} B; the card "
+                             f"allows {smem_cap} B per block")
+        return FlashPlan(body, HEAD_DIMS[-1], tile_q, BLOCK_KVS[0],
+                         -(-Skv // BLOCK_KVS[0]), smem, False, True,
+                         -(-d // HEAD_DIMS[-1]))
     D = next(n for n in HEAD_DIMS if n >= d)
     # d 256 in bf16: one consumer warpgroup (O is 128 registers a thread)
-    max_q = 64 if bf16 and D == 256 else MAX_BLOCK_Q
-    tile_q = next((n for n in range(max_q, 0, -16) if block_q % n == 0),
-                  min(-(-block_q // 16) * 16, max_q))
+    tile_q = _tile_q(block_q, 64 if bf16 and D == 256 else MAX_BLOCK_Q)
     tile_kv = next((n for n in BLOCK_KVS[::-1] if block_kv % n == 0),
                    BLOCK_KVS[0])
     while (flash_smem_bytes(D, tile_q, tile_kv, dtype) > smem_cap
@@ -122,9 +164,8 @@ def flash_plan(d: int, Sq: int, Skv: int, block_q: int, block_kv: int,
     if smem > smem_cap:
         raise ValueError(f"head dim {d} stages {smem} B at the least tiles; "
                          f"the card allows {smem_cap} B per block")
-    return FlashPlan("bf16" if bf16 else "f32", D, tile_q, tile_kv,
-                     -(-Skv // tile_kv), smem,
-                     bf16 and d % 8 == 0 and aligned, general)
+    return FlashPlan(body, D, tile_q, tile_kv, -(-Skv // tile_kv), smem,
+                     bf16 and d % 8 == 0 and aligned, general, 1)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,9 +173,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int, block_q: int,
                          block_kv: int) -> torch.Tensor:
     """q: (B, Sq, H, d); k, v: (B, Skv, K, d) on the card, contiguous,
-    all float32 or all bfloat16, d <= 256 -> o: (B, Sq, H, d) in q's
-    type.  ``block_q``/``block_kv`` must divide Sq/Skv (see
-    ``flash_blocks``); :func:`flash_plan` gives the launch."""
+    all float32 or all bfloat16 -> o: (B, Sq, H, d) in q's type.
+    ``block_q``/``block_kv`` must divide Sq/Skv (see ``flash_blocks``);
+    :func:`flash_plan` gives the launch (one entry-point call; above d
+    256 it launches once per slice)."""
     B, Sq, H, d = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if K < 1 or H % K:

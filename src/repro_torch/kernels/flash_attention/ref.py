@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from .kernel import flash_plan
+from .kernel import HEAD_DIMS, WIDE_CHUNK, flash_plan
 
 __all__ = ["attention_ref", "flash_tiled_ref"]
 
@@ -85,7 +85,10 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32: q is scaled before the dot, and both products are the three
     TF32 products of the big/small split.  bfloat16: S is formed from
     the bf16 inputs in float32 and scaled after, and P is rounded to
-    bf16 before P . V."""
+    bf16 before P . V.  Above d 256 (the wide body, either type): one
+    walk per slice of at most 256 of V's columns, each forming the whole
+    S over all d columns as a sum of 3xTF32 products of
+    ``WIDE_CHUNK``-column chunks, with the float32 numerics."""
     B, Sq, H, d = q.shape
     Skv, K = k.shape[1], k.shape[2]
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
@@ -94,7 +97,8 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{Skv})")
     plan = flash_plan(d, Sq, Skv, bq, bkv, q.dtype)
     tq, tkv = plan.tile_q, plan.tile_kv
-    bf16 = q.dtype == torch.bfloat16
+    wide = plan.slices > 1
+    bf16 = q.dtype == torch.bfloat16 and not wide
     scale = 1.0 / math.sqrt(d)
     # (B, H, S, d) float32, k and v repeated onto their query heads
     qf = q.float().transpose(1, 2)
@@ -102,44 +106,59 @@ def flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vf = v.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
     if not bf16:
         qf = qf * scale
-    out = torch.empty_like(qf)
-    for q0 in range(0, Sq, tq):
-        q1 = min(q0 + tq, Sq)
-        pos = torch.arange(q0, q1, device=q.device) + q_offset
-        lo, hi = 0, plan.n_kv           # the KV tiles with a live pair
-        if causal:
-            hi = min(hi, max(0, (q1 - 1 + q_offset) // tkv + 1))
-        if window > 0:
-            lo = max(0, (q0 + q_offset - window + 1) // tkv)
-        qb = qf[:, :, q0:q1]
-        m = torch.full(qb.shape[:-1], _NEG_INF, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(qb)
-        for kb in range(lo, hi):
-            k0, k1 = kb * tkv, min(kb * tkv + tkv, Skv)
-            kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
-            if bf16:
-                s = (qb @ kt.transpose(-1, -2)) * scale
-            else:
-                s = _mm_3xtf32(qb, kt.transpose(-1, -2))
-            if softcap and softcap > 0:
-                s = torch.tanh(s / softcap) * softcap
-            dist = pos[:, None] - torch.arange(k0, k1,
-                                               device=q.device)[None, :]
-            ok = torch.ones_like(dist, dtype=torch.bool)
+
+    def scores(qb, kt):
+        if bf16:
+            return (qb @ kt.transpose(-1, -2)) * scale
+        if wide:
+            return sum(_mm_3xtf32(qb[..., c:c + WIDE_CHUNK],
+                                  kt[..., c:c + WIDE_CHUNK].transpose(-1, -2))
+                       for c in range(0, d, WIDE_CHUNK))
+        return _mm_3xtf32(qb, kt.transpose(-1, -2))
+
+    def walk(vs):
+        """O's columns of the V columns ``vs`` (one launch's slice)."""
+        out = torch.empty(qf.shape[:-1] + vs.shape[-1:], device=q.device)
+        for q0 in range(0, Sq, tq):
+            q1 = min(q0 + tq, Sq)
+            pos = torch.arange(q0, q1, device=q.device) + q_offset
+            lo, hi = 0, plan.n_kv       # the KV tiles with a live pair
             if causal:
-                ok &= dist >= 0
+                hi = min(hi, max(0, (q1 - 1 + q_offset) // tkv + 1))
             if window > 0:
-                ok &= dist < window
-            s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
-            m_new = torch.maximum(m, s.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.where(ok, torch.exp(s - m_new[..., None]),
-                            torch.zeros_like(s))
-            l = l * corr + p.sum(-1)
-            pv = (p.to(torch.bfloat16).float() @ vt if bf16
-                  else _mm_3xtf32(p, vt))
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
+                lo = max(0, (q0 + q_offset - window + 1) // tkv)
+            qb = qf[:, :, q0:q1]
+            m = torch.full(qb.shape[:-1], _NEG_INF, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qb.shape[:-1] + vs.shape[-1:],
+                              device=q.device)
+            for kb in range(lo, hi):
+                k0, k1 = kb * tkv, min(kb * tkv + tkv, Skv)
+                kt, vt = kf[:, :, k0:k1], vs[:, :, k0:k1]
+                s = scores(qb, kt)
+                if softcap and softcap > 0:
+                    s = torch.tanh(s / softcap) * softcap
+                dist = pos[:, None] - torch.arange(k0, k1,
+                                                   device=q.device)[None, :]
+                ok = torch.ones_like(dist, dtype=torch.bool)
+                if causal:
+                    ok &= dist >= 0
+                if window > 0:
+                    ok &= dist < window
+                s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(s - m_new[..., None]),
+                                torch.zeros_like(s))
+                l = l * corr + p.sum(-1)
+                pv = (p.to(torch.bfloat16).float() @ vt if bf16
+                      else _mm_3xtf32(p, vt))
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out
+
+    step = HEAD_DIMS[-1] if wide else d
+    out = torch.cat([walk(vf[..., c0:c0 + step])
+                     for c0 in range(0, d, step)], dim=-1)
     return out.transpose(1, 2).contiguous().to(q.dtype)

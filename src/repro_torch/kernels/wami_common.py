@@ -56,15 +56,19 @@ def grid_steps_model(H: int, W: int, *, ports: int, unrolls: int) -> int:
     return (H // unrolls) * ports
 
 
-def run4_geometry(H: int, W: int, *, ports: int, unrolls: int
-                  ) -> Tuple[int, int]:
+def run4_geometry(H: int, W: int, *, ports: int, unrolls: int,
+                  scalar_pixels: int = 0) -> Tuple[int, int]:
     """(threads per CTA, passes of the widest CTA) of a run-of-4 launch
     on 16-byte aligned tensors, the formula of ``run4_threads`` in
     ``csrc/wami_common.cuh``: a tile row splits into scalar pixels up to
     its first 16-byte-aligned run of 4, whole runs, and a scalar tail
     (every pixel scalar when W % 4 != 0); a CTA takes one thread per
-    item, rounded up to a warp, at most 1,024."""
+    item, rounded up to a warp, at most 1,024.  Tiles of at most
+    ``scalar_pixels`` pixels take one thread a pixel instead (the
+    kernels' ``kScalar`` body, ``run4_body``)."""
     bh, bw = knob_blocks(H, W, ports=ports, unrolls=unrolls)
+    if bh * bw <= scalar_pixels:
+        return -(-bh * bw // 32) * 32, 1
     vec = W % 4 == 0
     items = 0
     for j in range(min(ports, 4)):       # tile columns j * bw, mod 4

@@ -60,7 +60,5 @@ def debayer_geometry(H: int, W: int, *, ports: int, unrolls: int):
     aligned tensors, the C entry point's formula: one thread a pixel for
     tiles of at most :data:`SCALAR_PIXELS` pixels, else a thread per run
     of 4 (:func:`run4_geometry`)."""
-    bh, bw = knob_blocks(H, W, ports=ports, unrolls=unrolls)
-    if bh * bw <= SCALAR_PIXELS:
-        return -(-bh * bw // 32) * 32, 1
-    return run4_geometry(H, W, ports=ports, unrolls=unrolls)
+    return run4_geometry(H, W, ports=ports, unrolls=unrolls,
+                         scalar_pixels=SCALAR_PIXELS)

@@ -1,6 +1,11 @@
 """ctypes bindings of ``csrc/wami_steep.cu``: steepest-descent images and
 the Gauss-Newton Hessian, on the knob grid of :mod:`..wami_common`.
 
+Steepest descent takes a run of 4 adjacent pixels a thread (two 16-byte
+loads, 96 contiguous bytes of output; one pixel in tiles of at most 128)
+and a CTA up to 1,024 threads (:func:`steepest_descent_geometry` is the
+C source's launch formula).
+
 The Hessian is one launch: per-CTA partial sums into a scratch buffer,
 then the CTA that finishes last sums them in index order (deterministic,
 no float atomics).  The partials and the ticket counter that picks that
@@ -19,12 +24,12 @@ import torch
 
 from ..build import CudaKernel, current_stream, require_cuda_f32
 from ..wami_common import (grid_steps_model, knob_blocks, launch_grid,
-                           vmem_bytes_model)
+                           run4_geometry, vmem_bytes_model)
 
 __all__ = ["steepest_descent_kernel", "hessian_kernel",
            "steepest_descent_cuda", "hessian_cuda", "HessianScratch",
            "hessian_scratch", "vmem_bytes", "grid_steps",
-           "hessian_vmem_bytes"]
+           "hessian_vmem_bytes", "steepest_descent_geometry"]
 
 _N_IN, _N_OUT = 2, 6      # steepest descent: gx, gy -> 6 sd planes
 
@@ -101,6 +106,16 @@ def hessian_cuda(sd: torch.Tensor, *, ports: int = 1,
 
 vmem_bytes = functools.partial(vmem_bytes_model, n_in=_N_IN, n_out=_N_OUT)
 grid_steps = grid_steps_model
+SCALAR_PIXELS = 128      # tiles up to this size: one pixel a thread
+
+
+def steepest_descent_geometry(H: int, W: int, *, ports: int, unrolls: int):
+    """(threads per CTA, passes of the widest CTA) of a steepest-descent
+    launch on 16-byte aligned tensors, the C entry point's formula: one
+    thread a pixel for tiles of at most :data:`SCALAR_PIXELS` pixels,
+    else a thread per run of 4 (:func:`run4_geometry`)."""
+    return run4_geometry(H, W, ports=ports, unrolls=unrolls,
+                         scalar_pixels=SCALAR_PIXELS)
 
 
 def hessian_vmem_bytes(H: int, W: int, *, ports: int, unrolls: int,

@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention import (H100_SMEM_OPTIN,
                                                  flash_attention_kernel,
                                                  flash_blocks, flash_plan,
                                                  flash_smem_bytes,
-                                                 flash_tiled_ref, mha,
+                                                 flash_tiled_ref,
+                                                 flash_wide_smem_bytes, mha,
                                                  mha_ref)
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref,
                                           ssd_heads_per_cta, ssd_oracle,
@@ -402,6 +403,7 @@ def _assert_plan_covers(plan, d, Sq, Skv, dtype):
     assert plan.tile_kv in (16, 32, 64, 128)
     assert plan.n_kv == -(-Skv // plan.tile_kv)
     assert plan.tma == (dtype == BF16 and d % 8 == 0)
+    assert plan.slices == 1
     assert plan.general == bool(d != plan.D or Sq % plan.tile_q
                                 or Skv % plan.tile_kv)
     if plan.general:                        # the bodies built for it
@@ -497,17 +499,87 @@ def test_flash_plan_keeps_the_launch_at_the_paths_blocks():
             bq, bkv = 128 // ports, 16 * unrolls
             plan = flash_plan(64, 128, 128, bq, bkv, F32, H100_SMEM_OPTIN)
             assert plan == ("f32", 64, bq, bkv, 128 // bkv,
-                            4 * (bq + 4 * bkv) * 68, False, False)
+                            4 * (bq + 4 * bkv) * 68, False, False, 1)
     for bq, bkv in ((64, 32), (64, 64)):
         plan = flash_plan(256, 4096, 4096, bq, bkv, BF16, H100_SMEM_OPTIN)
         assert plan == ("bf16", 256, bq, bkv, 4096 // bkv,
-                        flash_smem_bytes(256, bq, bkv, BF16), True, False)
+                        flash_smem_bytes(256, bq, bkv, BF16), True, False,
+                        1)
 
 
 def test_flash_plan_refuses_head_dims_above_256():
-    """No config of the repository has d > 256 (ROADMAP Queue 3)."""
-    with pytest.raises(ValueError):
-        flash_plan(264, 128, 128, 64, 64, BF16, H100_SMEM_OPTIN)
+    """What the plan still refuses: a head dim or a block below 1.  A head
+    dim above 256, which no config of the repository has, is no longer
+    refused: d 264 runs as two slices of the wide body."""
+    for d, bq, bkv in ((0, 64, 64), (264, 0, 64), (264, 64, 0)):
+        with pytest.raises(ValueError):
+            flash_plan(d, 128, 128, bq, bkv, BF16, H100_SMEM_OPTIN)
+    assert flash_plan(264, 128, 128, 64, 64, BF16,
+                      H100_SMEM_OPTIN).slices == 2
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=str)
+@pytest.mark.parametrize("d", [257, 320, 384, 512, 1024])
+def test_flash_plan_takes_head_dims_above_256(d, dtype):
+    """Above d 256 the plan runs ceil(d / 256) slices of V's columns, each
+    at most D = 256 wide, in the wide body (general, 16-row KV tiles, no
+    TMA, in either type), at the query tiles of the blocks (up to 128
+    rows in bf16 too), staging what ``flash_wide_smem_bytes`` says --
+    within the card at every block -- whatever d is."""
+    for block_q, block_kv, Sq, Skv in ((128, 128, 512, 512),
+                                       (64, 64, 512, 512),
+                                       (1, 128, 1, 256),
+                                       (20, 20, 1500, 1500)):
+        plan = flash_plan(d, Sq, Skv, block_q, block_kv, dtype,
+                          H100_SMEM_OPTIN)
+        assert plan.slices == -(-d // 256) and plan.D == 256
+        assert plan.body == ("bf16" if dtype == BF16 else "f32")
+        assert plan.general and not plan.tma and plan.tile_kv == 16
+        assert plan.n_kv == -(-Skv // 16)
+        assert plan.tile_q == {128: 128, 64: 64, 1: 16, 20: 32}[block_q]
+        assert plan.smem == flash_wide_smem_bytes(256, plan.tile_q)
+        assert plan.smem <= flash_wide_smem_bytes(256, 128) == 55808
+
+
+# (B, Sq, Skv, H, K, d), kwargs: the wide body's shapes -- GQA, causal,
+# window and soft-cap, decode (q_offset), blocks off the 16-row grid
+FLASH_WIDE_SHAPES = [
+    ((1, 64, 64, 4, 2, 320), dict(block_q=32, block_kv=32)),
+    ((1, 64, 64, 4, 2, 512), dict(window=40, softcap=30.0, block_q=32,
+                                  block_kv=64)),
+    ((2, 1, 48, 2, 1, 384), dict(q_offset=47)),
+    ((1, 60, 60, 2, 2, 300), dict(causal=False, block_q=20, block_kv=12)),
+    ((1, 32, 32, 2, 1, 513), dict(block_q=16, block_kv=16)),
+]
+FLASH_WIDE_IDS = ["d320", "d512-window-softcap", "d384-decode",
+                  "d300-blocks20x12", "d513"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", FLASH_WIDE_SHAPES, ids=FLASH_WIDE_IDS)
+def test_flash_sliced_ref_matches_jax_oracle_at_wide_head_dims(shape, kw,
+                                                               dtype):
+    """The plain version and the wide body's decomposition
+    (``flash_tiled_ref`` above d 256: a walk per 256-column slice of V,
+    S over all d in 64-column 3xTF32 chunks) against the JAX oracle."""
+    t, j = _both(_flash_inputs(*shape), dtype)
+    jkw = {key: val for key, val in kw.items() if not key.startswith("block")}
+    want = j_mha_ref(*j, **jkw)
+    assert _max_err(mha(*t, **kw), want) < TOL[dtype]
+    got = flash_tiled_ref(*t, **kw)
+    assert got.dtype == t[0].dtype and tuple(got.shape) == tuple(t[0].shape)
+    assert _max_err(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", FLASH_WIDE_SHAPES[:2],
+                         ids=FLASH_WIDE_IDS[:2])
+def test_flash_sliced_ref_matches_jax_pallas_interpret(shape, kw, dtype):
+    """The wide body's decomposition against the JAX Pallas kernel in
+    interpret mode at the same blocks, d 320 and 512, from one seed."""
+    t, j = _both(_flash_inputs(*shape), dtype)
+    want = _j_flash(j, **kw)
+    assert _max_err(flash_tiled_ref(*t, **kw), want) < TOL[dtype]
 
 
 def _j_flash(j, **kw):

@@ -353,6 +353,73 @@ def test_debayer_gradient_launch_geometry_at_every_table1_point(stage,
         (160, 1) if stage == "debayer" else (64, 1))
 
 
+@pytest.mark.parametrize("stage,geometry", [
+    ("grayscale", tgray.kernel.grayscale_geometry),
+    ("steep_descent", tsteep.kernel.steepest_descent_geometry)])
+def test_grayscale_steep_launch_geometry_at_every_table1_point(stage,
+                                                               geometry):
+    """Grayscale and steepest descent take a run of 4 pixels a thread, up
+    to 1,024 threads a CTA, and one pixel a thread in tiles of at most 256
+    (grayscale) or 128 pixels (steepest descent): one pass over every
+    Table-1 tile of the 128 x 128 frame, at most four (grayscale, ports 1
+    and unrolls 32: 4,096 runs) or two (steepest descent, ports 1 and
+    unrolls 16: 2,048 runs) at 512 x 512; a frame whose width is not a
+    multiple of 4 runs one scalar pixel a thread, and a tile off the
+    16-byte grid adds a scalar head or tail."""
+    max_ports, max_unrolls = WAMI_KNOB_TABLE[stage]
+    one_a_thread = {"grayscale": 256, "steep_descent": 128}[stage]
+    passes = {}
+    for n in (TILE, 512):
+        for ports in range(1, max_ports + 1):
+            for unrolls in range(1, max_unrolls + 1):
+                if n % ports or n % unrolls:
+                    continue
+                threads, p = geometry(n, n, ports=ports, unrolls=unrolls)
+                assert threads <= 1024 and threads % 32 == 0
+                pixels = unrolls * (n // ports)
+                items = pixels if pixels <= one_a_thread else pixels // 4
+                assert threads == min(1024, -(-items // 32) * 32)
+                passes[n] = max(passes.get(n, 0), p)
+    most = {"grayscale": 4, "steep_descent": 2}[stage]
+    assert passes == {TILE: 1, 512: most}
+    assert geometry(512, 512, ports=1, unrolls=max_unrolls) == (1024, most)
+    # the largest tile of the 128 frame: 1,024 runs (grayscale), 512
+    assert geometry(TILE, TILE, ports=1, unrolls=max_unrolls) == (
+        TILE * max_unrolls // 4, 1)
+    # W % 4 != 0: every pixel scalar (30 pixels of a 6-column tile; 495
+    # of a 33-column tile, above the one-pixel-a-thread limit)
+    assert geometry(30, 66, ports=11, unrolls=5) == (32, 1)
+    assert geometry(30, 66, ports=2, unrolls=15) == (512, 1)
+    # 18- and 9-column tiles at 72, 288 pixels: runs of 4 between a
+    # scalar head and tail (a 9-column tile at column 9: a head of 3, one
+    # run, a tail of 2 -- six items a row); 144 pixels: one a thread in
+    # grayscale, runs (six items a row) in steepest descent
+    assert geometry(32, 72, ports=4, unrolls=16) == (96, 1)
+    assert geometry(32, 72, ports=8, unrolls=32) == (192, 1)
+    assert geometry(32, 72, ports=4, unrolls=8) == (
+        (160, 1) if stage == "grayscale" else (64, 1))
+    # 160 pixels: one a thread in grayscale, 40 runs in steepest descent;
+    # 48: one a thread; 320: 80 runs
+    assert geometry(30, 64, ports=2, unrolls=5) == (
+        (160, 1) if stage == "grayscale" else (64, 1))
+    assert geometry(30, 64, ports=4, unrolls=3) == (64, 1)
+    assert geometry(30, 64, ports=1, unrolls=5) == (96, 1)
+
+
+def test_grayscale_plain_version_is_the_kernels_float32_arithmetic():
+    """The plain version's luma is float32 products by the float32
+    constants, summed left to right and rounded at each step: the
+    arithmetic of the CUDA kernel (no product contracted into an FMA),
+    so the two agree bit for bit."""
+    rgb = _inputs((32, 40))["rgb"]
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    want = ((np.float32(0.299) * r + np.float32(0.587) * g)
+            + np.float32(0.114) * b)
+    assert want.dtype == np.float32
+    got = tgray.grayscale(torch.from_numpy(rgb), ports=4, unrolls=8)
+    assert np.array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("kernel", [
     tgray.grayscale_kernel, tgrad.gradient_kernel,
     tsteep.steepest_descent_kernel, tsteep.hessian_kernel,
