@@ -10,19 +10,21 @@ which fails the run on any error:
   1. device  — the card's name and power limit; build every kernel
      under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. parity  — every WAMI kernel against its plain PyTorch version on
-     the card, at tile 128 and at the 512x512 frame, over the stage's
+     the card, at tiles 64 and 128 (the tiles the WAMI drives run at)
+     and at the 512x512 frame, over the stage's
      Table-1 knob points (the Hessian over every dividing point of its
      Table-1 grid, and the same bits on three runs; tolerance max|d| /
      max(1, max|ref|): 1e-5, Hessian 1e-4; the change-detection mask
-     exactly equal; debayer, grayscale, gradient and steepest descent
-     the same bits), debayer also on a 30x64 frame whose 5-row blocks do
-     not align to the Bayer quad, every run-of-4 kernel also on 30x66
-     (W % 4 != 0), and on 32x72 or 64x72 frames (tiles off the 16-byte
-     grid: the scalar head and tail of the runs of 4),
-     warp also at the DSE's affine parameters (which clamp at the
-     border), and every stage of ``wami_cuda_parity_cases``; then, with
-     TF32 products off, flash attention at every knob point of the fleet
-     DSE in f32 (3xTF32 mma.sync) and bf16 (wgmma, TMA), at
+     exactly equal; debayer, grayscale, gradient, steepest descent and
+     warp the same bits), debayer also on a 30x64 frame whose 5-row
+     blocks do not align to the Bayer quad, every run-of-4 kernel also
+     on 30x66 (W % 4 != 0), and on 32x72 or 64x72 frames (tiles off the
+     16-byte grid: the scalar head and tail of the runs of 4), warp also
+     at the DSE's affine parameters (which clamp at the border; on the
+     odd frames too), and every stage of ``wami_cuda_parity_cases`` at
+     tiles 64 and 128;
+     then, with TF32 products off, flash attention at every knob point
+     of the fleet DSE in f32 (3xTF32 mma.sync) and bf16 (wgmma, TMA), at
      tests/test_kernels.py's shapes in both, its window and soft-cap
      cases and head dim 256 at the gemma blocks, the reference's four
      blockings (the spread across them printed), head dims 80, 128, 100,
@@ -48,7 +50,20 @@ which fails the run on any error:
      recording is replayed and must give the same front; the walls per
      knob point of the redesigned WAMI kernels print beside those of
      their earlier kernels (``PREV_WALLS_US``); the
-     analytical fleet drive on the H100 chip table follows;
+     analytical fleet drive on the H100 chip table follows.  Then the
+     share-PLM drives, each its own path with its counts zeroed just
+     before and read just after: ``build_session("wami", "cuda",
+     share_plm=True, mode="record", tiles=(64, 128),
+     verify_plans=True)`` over the tile-128 recording of the WAMI drive
+     (only new points are timed; the calibrated fallback is fitted from
+     its walls) and a fresh tile-64 one, and ``build_session("fleet",
+     "cuda", share_plm=True, mode="record")`` into a fresh recording
+     (every fleet stage has a kernel, so nothing is priced through the
+     calibrated fallback, which a fresh recording cannot fit);
+     each replays to the same front, every point's planned cost is at
+     most its per-component sum, every plan is re-proved by the
+     verifier, the WAMI drive shares the LK loop's certified banks
+     somewhere, and every kernel of each drive launches;
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
@@ -64,7 +79,9 @@ which fails the run on any error:
      and at model width (a gemma2-9b local layer at each of
      GEMMA_BLOCKS, with ``flex_attention`` under ``torch.compile`` as its
      yardstick; a mamba2-780m layer at chunk 64 and at its own chunk
-     256).
+     256).  The warp's yardstick is ``grid_sample`` (bilinear, border
+     padding, ``align_corners``) on a grid built outside the timed call;
+     its max|d| against the plain version prints for information.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -91,6 +108,9 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 TILE, FRAME = 128, 512
+# the tiles the WAMI drives run the kernels at: the plain drive's 128 and
+# the share-PLM drive's tile axis
+WAMI_TILES = (64, TILE)
 # calls per timed reading: short enough that a plain version's kernels
 # fit the device's queue of pending launches (about a thousand):
 # 20 calls for the kernels and the short plain versions (up to ~10
@@ -163,7 +183,24 @@ def kernel_table():
         x["mu"] = x["gray"][..., None] + mk(
             rng.standard_normal((H, W, 3))) * 8.0
         x["w"][::3, :, 1] = x["w"][::3, :, 0]
+        # the warp's source coordinates at p, normalised for grid_sample
+        # (align_corners: -1 and 1 are the first and last pixel centres)
+        p = x["p"]
+        yy, xx = torch.meshgrid(
+            torch.arange(H, dtype=torch.float32, device=dev),
+            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+        sx = (1.0 + p[0]) * xx + p[1] * yy + p[2]
+        sy = p[3] * xx + (1.0 + p[4]) * yy + p[5]
+        x["grid"] = torch.stack((2.0 * sx / (W - 1) - 1.0,
+                                 2.0 * sy / (H - 1) - 1.0), -1)[None]
         return x
+
+    def grid_sample(x):
+        """The warp as one library call: bilinear, border padding, on
+        the grid built outside the call."""
+        return torch.nn.functional.grid_sample(
+            x["gray"][None, None], x["grid"], mode="bilinear",
+            padding_mode="border", align_corners=True)[0, 0]
 
     def table1(max_ports, max_unrolls):
         """Knob points of a stage's Table-1 space: its corners, the
@@ -230,10 +267,19 @@ def kernel_table():
              replaces="src/repro/kernels/wami_steep/kernel.py:87"),
         dict(name="wami_warp", stage="warp", op=WP.warp_affine,
              ref=WP.warp_affine_oracle, counter=WP.warp_kernel,
-             args=("gray", "p"), knobs=sd_knobs, tol=1e-5,
-             # the DSE's p, whose source cells clamp at the border
+             args=("gray", "p"), knobs=sd_knobs, tol=1e-5, exact=True,
+             # the DSE's p, whose source cells clamp at the border (on
+             # the odd frames too)
              alt_args=[("gray", "p_dse")],
-             bytes_px=8, flops_px=22, bytes_fixed=6 * 4, library=None,
+             # a thread a pixel up to 1,024 pixels a tile; above it whole
+             # runs (30 x 64 at (1, 30)), scalar throughout (30 x 66,
+             # W % 4 != 0, at (1, 30)) and runs between a scalar head and
+             # tail (64 x 72's 18-column tiles at (4, 64))
+             odd_frames=[((30, 64), [(2, 5), (1, 5), (4, 3), (1, 30)]),
+                         ((30, 66), [(11, 5), (2, 3), (1, 1), (1, 30)]),
+                         ((64, 72), [(4, 64), (8, 32), (4, 8)])],
+             bytes_px=8, flops_px=22, bytes_fixed=6 * 4,
+             library=grid_sample,
              plain_launches=TIME_LAUNCHES_LONG,
              source="src/repro_torch/csrc/wami_warp.cu",
              replaces="src/repro/kernels/wami_warp/kernel.py:64"),
@@ -279,10 +325,11 @@ def _check_outputs(what, got, want, tol):
 def _parity_cases(k):
     """(H, W, input names, knob points) a kernel is checked at."""
     for names in [k["args"]] + k.get("alt_args", []):
-        for n in (TILE, FRAME):
+        for n in (*WAMI_TILES, FRAME):
             yield n, n, names, k["knobs"]
     for (H, W), knobs in k.get("odd_frames", []):
-        yield H, W, k["args"], knobs
+        for names in [k["args"]] + k.get("alt_args", []):
+            yield H, W, names, knobs
 
 
 def phase_parity(dev, inputs, table):
@@ -319,13 +366,14 @@ def phase_parity(dev, inputs, table):
         print(f"[parity] {k['name']}: max|d| {worst:.3g} over "
               f"{points} (shape, knob) points, tol {k['tol']:g} relative",
               flush=True)
-    for name, op, ref, args in wami_cuda_parity_cases(TILE, dev):
-        got, want = op(*args), ref(*args)
-        torch.cuda.synchronize(dev)
-        d = _check_outputs(f"{name} (parity case)", got, want,
-                           1e-4 if name == "wami_hessian" else 1e-5)
-        print(f"[parity] wami_cuda_parity_cases {name}: max|d| {d:.3g}",
-              flush=True)
+    for tile in WAMI_TILES:
+        for name, op, ref, args in wami_cuda_parity_cases(tile, dev):
+            got, want = op(*args), ref(*args)
+            torch.cuda.synchronize(dev)
+            d = _check_outputs(f"{name} (parity case, tile {tile})", got,
+                               want, 1e-4 if name == "wami_hessian" else 1e-5)
+            print(f"[parity] wami_cuda_parity_cases {name} at tile {tile}: "
+                  f"max|d| {d:.3g}", flush=True)
     return errs
 
 
@@ -377,35 +425,34 @@ def phase_functional(dev):
             "wall_s": wall, "cpu_max_dp": dp, "cpu_mask_diff": dm}
 
 
-def phase_dse(dev, table):
+def phase_dse(dev, table, rec_dir):
     """The main path: record-mode COSMOS session + exhaustive baseline
-    over one CudaOracle.  Launch counts are zeroed just before and read
-    just after."""
+    over one CudaOracle, recording into ``rec_dir``.  Launch counts are
+    zeroed just before and read just after."""
     import torch
     from repro_torch.apps.wami import (wami_cuda_oracle, wami_cuda_session,
                                        wami_knob_spaces)
     from repro_torch.core import (MeasurementSet, MeasurementStore,
                                   OracleLedger, exhaustive_dse)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "wami_cuda_tile128.json")
-        for k in table:
-            k["counter"].launches = 0
-        t0 = time.perf_counter()
-        oracle = wami_cuda_oracle("record", store_path=path, device=dev)
-        session = wami_cuda_session(oracle=oracle)
-        res = session.run()
-        spaces = wami_knob_spaces()
-        exh_ledger = OracleLedger(oracle)
-        exh = exhaustive_dse(list(spaces), oracle, spaces, exh_ledger)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        launches = {k["name"]: k["counter"].launches for k in table}
-        oracle.flush()
-        rec = MeasurementStore.load(path)
-        replay = wami_cuda_oracle(
-            "replay", device=dev, measurements=MeasurementSet.from_store(
-                MeasurementStore.load(path), tile=TILE))
-        res2 = wami_cuda_session(oracle=replay).run()
+    path = os.path.join(rec_dir, f"wami_cuda_tile{TILE}.json")
+    for k in table:
+        k["counter"].launches = 0
+    t0 = time.perf_counter()
+    oracle = wami_cuda_oracle("record", store_path=path, device=dev)
+    session = wami_cuda_session(oracle=oracle)
+    res = session.run()
+    spaces = wami_knob_spaces()
+    exh_ledger = OracleLedger(oracle)
+    exh = exhaustive_dse(list(spaces), oracle, spaces, exh_ledger)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k["name"]: k["counter"].launches for k in table}
+    oracle.flush()
+    rec = MeasurementStore.load(path)
+    replay = wami_cuda_oracle(
+        "replay", device=dev, measurements=MeasurementSet.from_store(
+            MeasurementStore.load(path), tile=TILE))
+    res2 = wami_cuda_session(oracle=replay).run()
     front = res.pareto()
     print(f"[dse] device_kind {oracle.device_kind!r}, shared-memory "
           f"budget {oracle.smem_budget} B, {wall:.2f} s", flush=True)
@@ -455,16 +502,128 @@ def phase_dse(dev, table):
     return {"launches": launches, "cosmos": res.invocations,
             "exhaustive": exh.invocations, "cosmos_failed": failed,
             "exhaustive_failed": exh_failed, "front": len(front),
+            "front_points": _front_points(res),
             "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
             "smem_budget": oracle.smem_budget}
+
+
+def _front_points(res):
+    """(theta, cost) of the mapped points on a result's front."""
+    return [[p.perf, p.cost] for p in res.pareto()]
+
+
+def _share_plm_drive(tag, app, dev, counters, plain, **opts):
+    """One share-PLM drive of ``app`` on the card: a record-mode
+    ``build_session(app, "cuda", share_plm=True, verify_plans=True)``
+    with the launch counts zeroed just before and read just after, then
+    a replay of the recordings, which must give the same front.  Every
+    mapped point's planned cost must be at most its per-component sum
+    (relative 1e-12: the two sums add the same areas in another order);
+    every emitted plan was re-proved sound by the verifier."""
+    import torch
+    from repro_torch.core import MeasurementStore, build_session
+    before = {}
+    for t in opts.get("tiles") or app.default_tiles:
+        path = app.measurement_path(t)
+        before[t] = (len(MeasurementStore.load(path))
+                     if os.path.exists(path) else 0)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    session = build_session(app, "cuda", share_plm=True, mode="record",
+                            verify_plans=True, device=dev, **opts)
+    res = session.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    session.ledger.tool.flush()
+    stores = {store.tile: len(store)
+              for store in session.ledger.tool.measurements.stores()}
+    res2 = build_session(app, "cuda", share_plm=True, mode="replay",
+                         verify_plans=True, device=dev, **opts).run()
+    print(f"[share-plm] {tag}: record, tiles {sorted(stores)}, "
+          f"{wall:.2f} s of host clock; invocations {res.invocations} "
+          f"(total {res.total_invocations}; plain drive "
+          f"{sum(plain['cosmos'].values())}); recorded points per tile "
+          f"{stores} (before the drive: {before}); launches in the drive: "
+          f"{launches}", flush=True)
+    print(f"[share-plm] {tag} front, (theta, cost B): plain "
+          + ", ".join(f"({t:.6g}, {c:.6g})" for t, c in plain["front_points"])
+          + "; shared " + ", ".join(
+              f"({p.perf:.6g}, {p.cost:.6g})" for p in res.pareto()),
+          flush=True)
+    for m in sorted(res.mapped, key=lambda m: m.theta_actual):
+        print(f"[share-plm] {tag} point theta {m.theta_actual:.6g}: cost "
+              f"{m.cost_actual:.6g} B (unshared {m.cost_unshared:.6g}); "
+              f"groups {[list(g) for g in m.plm_groups]}", flush=True)
+    dead = [n for n, c in launches.items() if c <= 0]
+    _require(not dead, f"{tag}: kernels never launched on the share-PLM "
+                       f"drive: {dead}")
+    # the calibrated fallback was fitted from the native recording as it
+    # stood; the replay refits from the recording as it stands now
+    native = app.native_tile
+    _require(not before.get(native) or stores[native] == before[native],
+             f"{tag}: the drive added points to the native recording, so "
+             f"its replay fits the calibrated fallback from another one")
+    _require(res.mapped and all(
+        math.isfinite(m.theta_actual) and m.theta_actual > 0
+        and m.cost_unshared is not None
+        and m.cost_actual <= m.cost_unshared * (1 + 1e-12)
+        for m in res.mapped),
+        f"{tag}: a mapped point's planned cost exceeds its "
+        f"per-component sum")
+    _require(repr(res2.mapped) == repr(res.mapped),
+             f"{tag}: replaying the share-PLM recordings changed the front")
+    print(f"[share-plm] {tag}: replay of the recordings reproduces the "
+          f"front", flush=True)
+    return res, {"launches": launches, "invocations": res.invocations,
+                 "wall_s": wall, "recorded_points": stores,
+                 "front_points": _front_points(res),
+                 "points": [[m.theta_actual, m.cost_actual,
+                             m.cost_unshared, [list(g) for g in m.plm_groups]]
+                            for m in res.mapped]}
+
+
+def phase_share_plm(dev, table, rec_dir, dse, fleet_dse):
+    """The memory side of COSMOS on the card: the share-PLM WAMI drive
+    over tiles 64 and 128 (the tile-128 recording is phase 4's, so only
+    new points are timed, and the calibrated fallback is fitted from the
+    card's own tile-128 walls; tile 64 is recorded afresh), then the
+    fleet's, recorded afresh.  The LK-loop group the TMG certifies must
+    form on some WAMI point."""
+    import dataclasses
+    from repro_torch.apps.wami import wami_tmg
+    from repro_torch.core import exclusive_pairs, get_app
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    wami = dataclasses.replace(
+        get_app("wami"), measurement_path=lambda t: os.path.join(
+            rec_dir, f"wami_cuda_tile{t}.json"))
+    res, out_wami = _share_plm_drive(
+        "wami", wami, dev, {k["name"]: k["counter"] for k in table}, dse,
+        tiles=WAMI_TILES)
+    certified = exclusive_pairs(wami_tmg())
+    lk = [g for m in res.mapped for g in m.plm_groups
+          if all(frozenset((u, v)) in certified
+                 for i, u in enumerate(g) for v in g[i + 1:])]
+    _require(lk, "wami: no point shares the LK loop's certified banks")
+    print(f"[share-plm] wami: groups the one-token LK cycle certifies: "
+          f"{sorted(set(lk))}", flush=True)
+    fleet = dataclasses.replace(
+        get_app("fleet"), measurement_path=lambda t=0: os.path.join(
+            rec_dir, "fleet_share_plm_cuda.json"))
+    _, out_fleet = _share_plm_drive(
+        "fleet", fleet, dev, {"flash_attention": flash_attention_kernel,
+                              "ssd_scan": ssd_scan_kernel}, fleet_dse)
+    return {"wami": out_wami, "fleet": out_fleet}
 
 
 # Walls of the WAMI DSE's recording with an earlier kernel, read by that
 # commit's chip_smoke.py (its --out JSON), in us per launch: change
 # detection's scalar kernel of commit 8a11b55 (one pixel a thread, at
 # most 256 threads a CTA), debayer's and gradient's of commit f6001f2,
-# and grayscale's and steepest descent's of commit ba3ac6d (the same
-# design).
+# grayscale's and steepest descent's of commit ba3ac6d, and the warp's
+# of commit 9bb0baf (the same design).
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_WALLS_US = {
     "change_det": ("the scalar design of commit 8a11b55", {
@@ -496,6 +655,11 @@ PREV_WALLS_US = {
         "p1:u16": 5.688, "p2:u2": 2.288, "p2:u4": 2.824, "p2:u8": 3.248,
         "p2:u16": 4.219, "p4:u4": 2.485, "p4:u8": 2.829, "p4:u16": 3.277,
         "p8:u8": 2.611, "p8:u16": 2.818}),
+    "warp": ("the scalar design of commit 9bb0baf", {
+        "p1:u1": 2.626, "p1:u2": 2.486, "p1:u4": 2.851, "p1:u8": 3.422,
+        "p1:u16": 4.536, "p2:u2": 2.667, "p2:u4": 2.494, "p2:u8": 2.850,
+        "p2:u16": 3.418, "p4:u4": 2.656, "p4:u8": 2.483, "p4:u16": 2.837,
+        "p8:u8": 2.670, "p8:u16": 2.675}),
 }
 
 
@@ -537,18 +701,25 @@ def phase_times(dev, inputs, table, ports=1, unrolls=8):
                              k.get("plain_launches", TIME_LAUNCHES))
             lib = (None if k["library"] is None
                    else _time_ms(dev, lambda: k["library"](x)))
+            # the library call against the plain version, for information
+            # (a yardstick, not a parity check)
+            lib_err = (None if k["library"] is None else float(
+                (k["library"](x).double() - k["ref"](*args).double())
+                .abs().max()))
             nbytes = k["bytes_px"] * n * n + k.get("bytes_fixed", 0)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = k["flops_px"] * n * n / FP32_FLOPS_PER_S * 1e3
             call = _call_ms(dev, lambda: k["op"](*args, ports=ports,
                                                  unrolls=unrolls))
             row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                   "call_ms": call,
+                   "library_max_abs_err": lib_err, "call_ms": call,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "flops": k["flops_px"] * n * n}
             out.setdefault(k["name"], {})[n] = row
-            lib_s = "-" if lib is None else f"{lib:.5f}"
+            lib_s = ("-" if lib is None else
+                     f"{lib:.5f} (max|d| {lib_err:.3g} against the plain "
+                     f"version)")
             print(f"[times] {k['name']} {n}x{n} (ports={ports}, "
                   f"unrolls={unrolls}): kernel {ms:.5f} ms (per Python "
                   f"call {call:.5f} ms), plain {plain:.5f} ms, library "
@@ -910,6 +1081,7 @@ def phase_fleet_dse(dev):
     return {"launches": launches, "cosmos": res.invocations,
             "exhaustive": exh.invocations, "cosmos_failed": failed,
             "exhaustive_failed": exh_failed, "front": len(front),
+            "front_points": _front_points(res),
             "mapped": len(res.mapped), "wall_s": wall, "walls": walls,
             "analytical": {"invocations": ana.invocations,
                            "mapped": len(ana.mapped),
@@ -1252,8 +1424,10 @@ def main(argv=None) -> int:
              "not be float32")
     errs.update(phase_fleet_parity(dev))
     functional = phase_functional(dev)
-    dse = phase_dse(dev, table)
-    fleet_dse = phase_fleet_dse(dev)
+    with tempfile.TemporaryDirectory() as rec_dir:
+        dse = phase_dse(dev, table, rec_dir)
+        fleet_dse = phase_fleet_dse(dev)
+        share_plm = phase_share_plm(dev, table, rec_dir, dse, fleet_dse)
     times = phase_times(dev, inputs, table)
     fleet_times = phase_fleet_times(dev)
 
@@ -1264,15 +1438,17 @@ def main(argv=None) -> int:
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": dse["launches"][k["name"]],
+            "share_plm_launches": share_plm["wami"]["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": [TILE, TILE], "knobs": {"ports": 1, "unrolls": 8},
             "call_ms": t["call_ms"],
+            "library_max_abs_err": t["library_max_abs_err"],
             "frame512": {key: times[k["name"]][FRAME][key] for key in
                          ("ms", "call_ms", "plain_ms", "bound_ms",
-                          "library_ms")},
+                          "library_ms", "library_max_abs_err")},
         })
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "bound_3xtf32_ms", "blocks", "chunk", "run_chunk")
@@ -1283,6 +1459,7 @@ def main(argv=None) -> int:
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": fleet_dse["launches"][k["name"]],
+            "share_plm_launches": share_plm["fleet"]["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -1304,7 +1481,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": kernels,
                        "functional": functional, "dse": dse,
-                       "fleet_dse": fleet_dse, "times": times,
+                       "fleet_dse": fleet_dse, "share_plm": share_plm,
+                       "times": times,
                        "fleet_times": fleet_times}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,9 +17,14 @@ COSMOS on two backends:
     inverse microbatching, cost the total device memory claimed.
 
 The pipeline TMG uses single-buffer channels: adjacent stages serialize
-(Fig. 3 with buffers=1).  The footprint models (``flash_vmem_bytes``,
+(Fig. 3 with buffers=1), which the PLM planner's TMG certificate turns
+into a shared-memory opportunity — the two stages may time-multiplex one
+shared-memory pool.  The footprint models (``flash_vmem_bytes``,
 ``ssd_vmem_bytes``) are the JAX package's, byte for byte, so the
 measured fronts compare with its ``PallasOracle`` on the same walls.
+The app registers as ``get_app("fleet")`` of
+:mod:`repro_torch.core.registry`; :func:`fleet_calibrated_tool` is its
+measured backend's unit-calibrated fallback.
 """
 
 from __future__ import annotations
@@ -31,8 +36,12 @@ import numpy as np
 
 from ...configs import SHAPES, get_config
 from ...core.cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
-                                 device_kind_of, open_recording)
+                                 MeasurementStore, device_kind_of,
+                                 open_recording)
 from ...core.knobs import KnobSpace
+from ...core.plm.planner import PLMPlanner
+from ...core.plm.units import UnitSystem, fit_unit_system
+from ...core.registry import App, build_session, register_app
 from ...core.session import ExplorationSession
 from ...core.tmg import TMG, pipeline_tmg
 from ...core.xlatool import XLATool
@@ -45,8 +54,8 @@ __all__ = ["FLASH_S", "FLASH_D", "FLASH_HEADS", "SSD_S", "SSD_P", "SSD_N",
            "fleet_xla_tool", "flash_vmem_bytes", "flash_grid_steps",
            "ssd_vmem_bytes", "ssd_grid_steps", "fleet_cuda_components",
            "fleet_cuda_parity_cases", "fleet_cuda_oracle",
-           "fleet_cuda_session", "fleet_session",
-           "default_measurement_path"]
+           "fleet_cuda_session", "fleet_session", "fleet_unit_system",
+           "fleet_calibrated_tool", "default_measurement_path"]
 
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", ".."))
@@ -71,9 +80,14 @@ _FLEET_STAGES = {
 }
 
 
-def default_measurement_path() -> str:
+_RECORD_HINT = ("record on the card: build_session('fleet', 'cuda', "
+                "mode='record')")
+
+
+def default_measurement_path(tile: int = 0) -> str:
     """The fleet kernels' recording on the card (no tile axis: the
-    kernel geometry is fixed, so everything keys under tile 0)."""
+    kernel geometry is fixed, so everything keys under tile 0 and
+    ``tile`` is accepted for the registry's path protocol only)."""
     return os.path.join(_REPO_ROOT, "artifacts", "measurements",
                         "fleet_cuda.json")
 
@@ -161,10 +175,12 @@ def _draw_inputs(rng: np.random.Generator, s_flash: int, s_ssd: int):
     return tuple(a.astype(f32) for a in (q, k, v, x, dt, A, Bm, Cm))
 
 
-def fleet_cuda_components(device=None) -> Dict[str, CudaKernelSpec]:
+def fleet_cuda_components(tile: int = 0, device=None
+                          ) -> Dict[str, CudaKernelSpec]:
     """The two fleet stages as measured kernel specs, with inputs baked
     from ``numpy.random.default_rng(7)`` on ``device`` (default: the
-    CUDA card), at the fixed fleet geometry.  The SSD runner of a knob
+    CUDA card), at the fixed fleet geometry (``tile`` is accepted for
+    the components-factory protocol only).  The SSD runner of a knob
     point holds a contiguous copy of its ``ports`` head lanes, made when
     the point is built, so the timed call is the kernel alone."""
     dev = resolve_device(device)
@@ -243,7 +259,7 @@ def fleet_cuda_oracle(mode: str = "measure", *, device=None,
     :func:`default_measurement_path`).  Both stages have a kernel, so
     no fallback tool is attached.  Remaining keywords flow to :class:`CudaOracle` (``timer``,
     ``smem_budget``)."""
-    components = fleet_cuda_components(device)
+    components = fleet_cuda_components(device=device)
     if device_kind is None:
         device_kind = device_kind_of(device)
     if measurements is None and mode in ("record", "replay"):
@@ -251,7 +267,8 @@ def fleet_cuda_oracle(mode: str = "measure", *, device=None,
             store_path or default_measurement_path(), mode=mode, tile=0,
             device_kind=device_kind, flush_every=flush_every)
     return CudaOracle(components, mode=mode, measurements=measurements,
-                      device=device, device_kind=device_kind, **kwargs)
+                      device=device, device_kind=device_kind,
+                      record_hint=_RECORD_HINT, **kwargs)
 
 
 def fleet_cuda_session(delta: float = 0.3, *, mode: str = "measure",
@@ -259,26 +276,79 @@ def fleet_cuda_session(delta: float = 0.3, *, mode: str = "measure",
                        oracle: Optional[CudaOracle] = None,
                        **kwargs) -> ExplorationSession:
     """An :class:`ExplorationSession` over the fleet TMG driven by the
-    measured backend, with the JAX package's ``fleet`` app defaults
-    (knob spaces, ``delta`` 0.3, nothing fixed).  Remaining keywords flow
-    to :func:`fleet_cuda_oracle` unless a pre-built ``oracle`` is
-    given."""
+    measured backend — ``build_session("fleet", "cuda")`` with the fleet
+    app's defaults (knob spaces, ``delta`` 0.3, nothing fixed).
+    Remaining keywords flow to :func:`fleet_cuda_oracle` unless a
+    pre-built ``oracle`` is given."""
     tool = oracle or fleet_cuda_oracle(mode, device=device, **kwargs)
-    return ExplorationSession(fleet_tmg(), tool, fleet_knob_spaces(),
-                              delta=delta, fixed={}, workers=workers)
+    return build_session("fleet", "cuda", tool=tool, delta=delta,
+                         workers=workers)
+
+
+def fleet_unit_system(store: Optional[MeasurementStore] = None,
+                      **kwargs) -> UnitSystem:
+    """Exchange rates fitted from the fleet recording (default: the one
+    at :func:`default_measurement_path`): per-stage latency scales
+    (measured wall / roofline model) and one global device-memory-bytes
+    -> shared-memory-bytes area rate — the :mod:`repro_torch.core.calibrate`
+    fit applied to the XLA tool (keywords flow to
+    :func:`fleet_xla_tool`).  The fit reads the kernel specs' shapes and
+    footprint models only and never runs them, so their inputs are built
+    on the CPU."""
+    if store is None:       # an empty store is a store: fit from it
+        store = MeasurementStore.load(default_measurement_path())
+    return fit_unit_system(store, fleet_cuda_components(device="cpu"),
+                           fleet_xla_tool(**kwargs))
+
+
+def fleet_calibrated_tool(store: Optional[MeasurementStore] = None,
+                          **kwargs):
+    """The calibrated-measured analytical fallback: the XLA roofline
+    re-scaled onto the measured latency axis and shared-memory-byte cost
+    unit (keywords flow to :func:`fleet_xla_tool`)."""
+    return fleet_unit_system(store, **kwargs).calibrated(
+        fleet_xla_tool(**kwargs))
 
 
 def fleet_session(delta: float = 0.3, *, backend: str = "analytical",
-                  workers: int = 1, **kwargs) -> ExplorationSession:
-    """The fleet exploration on ``backend``: ``"analytical"`` (the
-    :class:`XLATool` on the chip table; keywords flow to
-    :func:`fleet_xla_tool`) or ``"cuda"`` (:func:`fleet_cuda_session`;
-    keywords flow there)."""
+                  workers: int = 1, share_plm: bool = False,
+                  **kwargs) -> ExplorationSession:
+    """``build_session("fleet", backend)`` with the fleet defaults, on
+    ``backend`` ``"analytical"`` (the :class:`XLATool` on the chip table;
+    keywords flow to :func:`fleet_xla_tool`) or ``"cuda"`` (the kernels
+    on the card; keywords flow to :func:`build_session`: ``mode``,
+    ``device``, ``verify_plans``, ...)."""
     if backend == "cuda":
-        return fleet_cuda_session(delta, workers=workers, **kwargs)
+        return build_session("fleet", "cuda", delta=delta, workers=workers,
+                             share_plm=share_plm, **kwargs)
     if backend != "analytical":
         raise ValueError(f"unknown fleet backend {backend!r}; available: "
                          f"'analytical', 'cuda'")
-    return ExplorationSession(fleet_tmg(), fleet_xla_tool(**kwargs),
-                              fleet_knob_spaces(), delta=delta, fixed={},
-                              workers=workers)
+    return build_session("fleet", "analytical",
+                         tool=fleet_xla_tool(**kwargs), delta=delta,
+                         workers=workers, share_plm=share_plm)
+
+
+# ----------------------------------------------------------------------
+# registration: `get_app("fleet")` of repro_torch.core.registry resolves
+# to this record
+# ----------------------------------------------------------------------
+register_app(App(
+    name="fleet",
+    description="hybrid attention + SSD serving pipeline: flash_attention "
+                "-> ssd_scan, priced as fleet shares (roofline on the "
+                "chip table) or measured CUDA kernels",
+    tmg=fleet_tmg,
+    knob_spaces=lambda **_kw: fleet_knob_spaces(),
+    analytical=fleet_xla_tool,
+    fixed={},
+    delta=0.3,
+    kernel_specs=fleet_cuda_components,
+    native_tile=0,
+    measurement_path=default_measurement_path,
+    recorded_tiles=(0,),
+    default_tiles=(0,),
+    calibrated_fallback=fleet_calibrated_tool,
+    record_hint=_RECORD_HINT,
+    plm_planner=lambda: PLMPlanner(fleet_tmg()),
+))

@@ -1,7 +1,10 @@
 """The WAMI stages as a measured :class:`CudaOracle` backend.
 
 Binds the knob-parameterized CUDA kernels under ``repro_torch.kernels``
-to the COSMOS component names:
+to the COSMOS component names, registers WAMI with the package's
+App/Backend registry (:mod:`repro_torch.core.registry`), and keeps the
+session constructors as thin wrappers over ``build_session("wami",
+"cuda")``:
 
   * seven stages are priced by *running* their kernel on a PLM-sized
     tile (``ports`` -> column-bank grid columns, ``unrolls`` -> rows per
@@ -9,7 +12,11 @@ to the COSMOS component names:
     change detection;
   * the 6x6 matrix stages (``sd_update``, ``matrix_*``) have no kernel
     worth measuring and are priced by the analytical fallback inside the
-    same oracle, so the full Fig. 8 TMG explores end-to-end.
+    same oracle, so the full Fig. 8 TMG explores end-to-end;
+  * the share-PLM drive (:func:`wami_cuda_plm_session`) adds the tile
+    knob and the PLM planner, with the analytical fallback calibrated
+    onto the measured axes from the native tile's recording
+    (:func:`wami_cuda_unit_system`).
 
 Inputs are baked deterministically per tile size from
 ``numpy.random.default_rng(42)``, so that record and replay price the
@@ -18,24 +25,41 @@ same physical workload.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import os
+from dataclasses import replace
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ...core.cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
-                                 device_kind_of, open_recording)
+                                 MeasurementStore, device_kind_of,
+                                 open_recording)
 from ...core.hlsim import HLSTool
+from ...core.plm.units import UnitSystem, fit_unit_system
+from ...core.registry import App, build_session, get_app, register_app
 from ...core.session import ExplorationSession
 from ...kernels import (wami_change_det, wami_debayer, wami_gradient,
                         wami_grayscale, wami_steep, wami_warp)
 from ...utils import from_numpy, resolve_device
 from . import components as C
+from .knobs import WAMI_TILE_SIZES
 from .pipeline import (MATRIX_INV_LATENCY_S, wami_hls_tool, wami_knob_spaces,
-                       wami_tmg)
+                       wami_plm_planner, wami_tmg)
 
-__all__ = ["WAMI_CUDA_STAGES", "wami_cuda_components",
-           "wami_cuda_parity_cases", "wami_cuda_oracle", "wami_cuda_session"]
+__all__ = ["WAMI_CUDA_STAGES", "WAMI_RECORDED_TILES", "wami_cuda_components",
+           "wami_cuda_parity_cases", "wami_cuda_oracle", "wami_cuda_session",
+           "wami_cuda_unit_system", "wami_cuda_plm_session",
+           "default_measurement_path"]
+
+_REPO_ROOT = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "..", ".."))
+
+# the tiles the WAMI kernels record at, one store file per tile; sessions
+# load only the native 128 unless the caller names more
+WAMI_RECORDED_TILES = (64, 128, 256)
+_RECORD_HINT = ("record on the card: build_session('wami', 'cuda', "
+                "mode='record', tiles=(N,))")
 
 # the stages with a CUDA kernel, in TMG order
 WAMI_CUDA_STAGES = ("debayer", "grayscale", "gradient", "steep_descent",
@@ -48,6 +72,12 @@ DSE_P_AFFINE = (0.01, -0.005, 0.8, 0.004, -0.01, -0.6)
 # ~[0.3, 0.7]: the floor() cell is then the same however the address
 # arithmetic is rounded
 PARITY_P_AFFINE = (1 / 1024, -1 / 2048, 0.5, 1 / 2048, -1 / 1024, 0.5)
+
+
+def default_measurement_path(tile: int = C.TILE) -> str:
+    """The WAMI kernels' recording on the card at ``tile``."""
+    return os.path.join(_REPO_ROOT, "artifacts", "measurements",
+                        f"wami_cuda_tile{tile}.json")
 
 
 def wami_cuda_components(tile: int = C.TILE, device=None
@@ -189,7 +219,7 @@ def wami_cuda_oracle(mode: str = "measure", *, tile: int = C.TILE,
     return CudaOracle(components, mode=mode, measurements=measurements,
                       fallback=fallback or wami_hls_tool(),
                       device=device, device_kind=device_kind,
-                      native_tile=tile, **kwargs)
+                      native_tile=tile, record_hint=_RECORD_HINT, **kwargs)
 
 
 def wami_cuda_session(delta: float = 0.25, *, mode: str = "measure",
@@ -197,13 +227,99 @@ def wami_cuda_session(delta: float = 0.25, *, mode: str = "measure",
                       oracle: Optional[CudaOracle] = None,
                       **kwargs) -> ExplorationSession:
     """An :class:`ExplorationSession` over the WAMI TMG driven by the
-    measured backend: the WAMI TMG and Table-1 knob spaces, Matrix-Inv
-    fixed at its software latency, and ``delta`` steps of the LP sweep.
+    measured backend — ``build_session("wami", "cuda")`` with this
+    signature: the WAMI TMG and Table-1 knob spaces, Matrix-Inv fixed at
+    its software latency, and ``delta`` steps of the LP sweep.
     Remaining keywords flow to :func:`wami_cuda_oracle` unless a
     pre-built ``oracle`` is given."""
     tool = oracle or wami_cuda_oracle(mode, tile=tile, device=device,
                                       **kwargs)
-    return ExplorationSession(wami_tmg(), tool, wami_knob_spaces(),
-                              delta=delta,
-                              fixed={"matrix_inv": MATRIX_INV_LATENCY_S},
-                              workers=workers)
+    return build_session("wami", "cuda", tool=tool, delta=delta,
+                         workers=workers)
+
+
+def wami_cuda_unit_system(tile: int = C.TILE,
+                          store: Optional[MeasurementStore] = None
+                          ) -> UnitSystem:
+    """Exchange rates fitted from a recording at ``tile`` (default: the
+    one at :func:`default_measurement_path`): per-component latency
+    scales plus one global bytes-per-mm² area rate.  Derived from the
+    store's sorted entries and the deterministic footprint formulas —
+    byte-reproducible on any machine holding the recording.  The fit
+    reads the kernel specs' shapes and footprint models only and never
+    runs them, so their inputs are built on the CPU (the ``meta`` device
+    would pull in torch's compiler stack, seconds of import)."""
+    if store is None:       # an empty store is a store: fit from it
+        store = MeasurementStore.load(default_measurement_path(tile))
+    return fit_unit_system(store, wami_cuda_components(tile, "cpu"),
+                           wami_hls_tool())
+
+
+def wami_cuda_plm_session(delta: float = 0.25, *,
+                          tile_sizes: Optional[tuple] = (64, 128),
+                          measured_tiles: Sequence[int] = (C.TILE,),
+                          workers: int = 1, share_plm: bool = True,
+                          mode: str = "measure",
+                          measurement_path: Optional[
+                              Callable[[int], str]] = None,
+                          **kwargs) -> ExplorationSession:
+    """The memory-co-design WAMI drive — ``build_session("wami", "cuda",
+    share_plm=True)`` over the recordings at ``measurement_path(t)``
+    (default: :func:`default_measurement_path`), in ``mode`` as there
+    (``"record"`` on the card times what they miss, ``"replay"`` runs
+    anywhere):
+
+      * the tile knob is a third axis on the tile-scaled components —
+        the native tile 128 and the tiles in ``measured_tiles`` price
+        through their recordings, other tiles through the unit-calibrated
+        analytical fallback (``missing="fallback"`` also covers mapped
+        points the recorded walk never touched, so the drive stays
+        deterministic);
+      * the fallback reports measured-axis latencies and byte areas
+        (:func:`wami_cuda_unit_system`, fitted from the tile-128
+        recording), so the mixed system front is unit-clean;
+      * the map phase prices the memory subsystem through the PLM
+        planner: the TMG certifies the six LK-loop components mutually
+        exclusive and their PLMs become one shared multi-bank memory.
+
+    Remaining keywords flow to :func:`build_session`: the backend's
+    ``device``, ``device_kind``, ``smem_budget``, and the session's
+    ``verify_plans``, ``on_event``, ...
+    """
+    app = get_app("wami")
+    if measurement_path is not None:
+        app = replace(app, measurement_path=measurement_path)
+    # an explicitly empty tile_sizes means "no tile axis" — pass () so
+    # build_session does NOT substitute the app's measured default
+    return build_session(app, "cuda", delta=delta, share_plm=share_plm,
+                         tile_sizes=tuple(tile_sizes or ()),
+                         tiles=tuple(dict.fromkeys((C.TILE,
+                                                    *measured_tiles))),
+                         workers=workers, mode=mode, **kwargs)
+
+
+# ----------------------------------------------------------------------
+# registration: `get_app("wami")` of repro_torch.core.registry resolves
+# to this record
+# ----------------------------------------------------------------------
+register_app(App(
+    name="wami",
+    description="WAMI Lucas-Kanade + change detection (the paper's "
+                "Fig. 8 case study): 12 HLS components + 1 software stage",
+    tmg=wami_tmg,
+    knob_spaces=wami_knob_spaces,
+    analytical=wami_hls_tool,
+    fixed={"matrix_inv": MATRIX_INV_LATENCY_S},
+    delta=0.25,
+    kernel_specs=wami_cuda_components,
+    native_tile=C.TILE,
+    measurement_path=default_measurement_path,
+    recorded_tiles=WAMI_RECORDED_TILES,
+    default_tiles=(C.TILE,),
+    calibrated_fallback=lambda store=None: wami_cuda_unit_system(
+        store=store).calibrated(wami_hls_tool()),
+    record_hint=_RECORD_HINT,
+    plm_planner=wami_plm_planner,
+    plm_tile_sizes=WAMI_TILE_SIZES,
+    plm_tile_sizes_measured=(64, 128),
+))

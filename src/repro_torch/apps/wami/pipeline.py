@@ -9,7 +9,12 @@ its TMG system model (Fig. 8) and the COSMOS entry points:
     align -> warp -> GMM change detection;
   * :func:`wami_tmg` — the Fig. 8 timed marked graph (Matrix-Inv is a
     software transition with fixed latency);
-  * :func:`wami_cosmos` / :func:`wami_exhaustive` — DSE drivers.
+  * :func:`wami_cosmos` / :func:`wami_exhaustive` — DSE drivers;
+    :func:`wami_session` — the same drive as an
+    :class:`~repro_torch.core.session.ExplorationSession` resolved
+    through the registry, optionally with the PLM planner
+    (:func:`wami_plm_planner`) and the tile axis;
+    :func:`wami_cosmos_no_memory` — Table 1's "No Memory" reference.
 """
 
 from __future__ import annotations
@@ -18,15 +23,17 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ...core import (CosmosResult, ExhaustiveResult, HLSTool, KnobSpace,
-                     OracleLedger, Place, TMG, Transition, cosmos_dse,
-                     exhaustive_dse)
+from ...core import (CosmosResult, ExhaustiveResult, ExplorationSession,
+                     HLSTool, KnobSpace, OracleLedger, Place, TMG,
+                     Transition, cosmos_dse, exhaustive_dse)
+from ...core.plm.planner import PLMPlanner
 from ...utils import resolve_device
 from . import components as C
 from .knobs import WAMI_KNOB_TABLE, WAMI_TILE_SIZES, wami_knob_space
 
 __all__ = ["lucas_kanade", "wami_app", "wami_tmg", "wami_hls_tool",
-           "wami_knob_spaces", "wami_cosmos", "wami_exhaustive",
+           "wami_knob_spaces", "wami_plm_planner", "wami_session",
+           "wami_cosmos", "wami_exhaustive", "wami_cosmos_no_memory",
            "WAMI_KNOB_TABLE", "WAMI_TILE_SIZES", "MATRIX_INV_LATENCY_S"]
 
 # Matrix-Inv runs in software (Section 7.1): fixed effective latency.
@@ -163,6 +170,30 @@ def wami_knob_spaces(tile: int = C.TILE, frame: int = C.FRAME,
     return {n: wami_knob_space(n, tile_sizes=tile_sizes) for n in comps}
 
 
+def wami_plm_planner() -> PLMPlanner:
+    """The WAMI memory planner: compatibility from the Fig. 8 TMG
+    (certifying the LK refinement loop mutually exclusive), Matrix-Inv
+    excluded (software, no PLM)."""
+    return PLMPlanner(wami_tmg(), exclude=("matrix_inv",))
+
+
+def wami_session(delta: float = 0.25, noise: float = 1.0, *,
+                 workers: int = 1, share_plm: bool = False,
+                 tile_sizes: Tuple[int, ...] = (),
+                 **kwargs) -> ExplorationSession:
+    """An :class:`ExplorationSession` over the WAMI system — the object
+    API behind :func:`wami_cosmos`, resolving through the registry
+    (``build_session("wami", "analytical")`` with the classic
+    signature).  ``share_plm`` attaches the system-level PLM planner;
+    ``tile_sizes`` opens the tile knob axis."""
+    from ...core.registry import build_session     # lazy: apps register late
+    return build_session("wami", "analytical",
+                         tool=wami_hls_tool(noise=noise), delta=delta,
+                         share_plm=share_plm,
+                         tile_sizes=tuple(tile_sizes),
+                         workers=workers, **kwargs)
+
+
 def wami_cosmos(delta: float = 0.25, noise: float = 1.0,
                 counting: Optional[OracleLedger] = None, *,
                 workers: int = 1) -> CosmosResult:
@@ -182,3 +213,16 @@ def wami_exhaustive(noise: float = 1.0,
     comps = [n for n in spaces]     # matrix_inv excluded (software)
     return exhaustive_dse(comps, tool, spaces, counting=counting,
                           workers=workers)
+
+
+def wami_cosmos_no_memory(delta: float = 0.25, noise: float = 1.0
+                          ) -> CosmosResult:
+    """Table 1's 'No Memory' reference: the PLM is not part of the DSE —
+    only standard dual-port memories are used (ports fixed at 2), and the
+    exploration reduces to the unroll knob."""
+    tool = wami_hls_tool(noise=noise)
+    spaces = {n: KnobSpace(clock_ns=s.clock_ns, min_ports=2, max_ports=2,
+                           max_unrolls=s.max_unrolls)
+              for n, s in wami_knob_spaces().items()}
+    return cosmos_dse(wami_tmg(), tool, spaces, delta=delta,
+                      fixed={"matrix_inv": MATRIX_INV_LATENCY_S})

@@ -26,8 +26,16 @@ synthesis oracle:
     roofline prices of fleet shares on the chip table
     (:mod:`repro_torch.core.chips`), footprints from
     :mod:`repro_torch.core.autotune`
+  * :mod:`repro_torch.core.plm` — system-level PLM planning (shared
+    banks across components the TMG certifies non-concurrent) and the
+    unit exchange rates of :mod:`repro_torch.core.calibrate`;
+    :mod:`repro_torch.core.analysis` re-proves emitted plans
+  * :mod:`repro_torch.core.registry` — the App/Backend registry and
+    ``build_session``, the one session constructor
 """
 
+from .calibrate import (CalibratedTool, CalibrationFit, calibrate_to_records,
+                        fit_area_scale, fit_latency_scales)
 from .characterize import CharacterizationResult, characterize_component, spans
 from .cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
                           MeasurementStore, MissingMeasurementError)
@@ -46,8 +54,13 @@ from .pareto import (DesignPoint, check_delta_curve, dominates_max_min,
                      pareto_front_min_min, span)
 from .planning import (ComponentModel, PiecewiseLinearCost, PlanPoint,
                        Schedule, plan, sweep, theta_bounds)
-from .plm import PLMRequirement
-from .session import ExplorationSession, ProgressEvent
+from .plm import (MemoryCompatGraph, MemoryGroup, MemoryPlan, PLMPlanner,
+                  PLMRequirement, UnitSystem, exclusive_pairs,
+                  fit_unit_system, smem_area_bytes)
+from .registry import (App, Backend, build_query_session, build_session,
+                       build_tool, get_app, get_backend, list_apps,
+                       list_backends, register_app, register_backend)
+from .session import DSEQuery, ExplorationSession, ProgressEvent
 from .tmg import TMG, Place, Transition, feedback_pipeline_tmg, pipeline_tmg
 
 __all__ = [
@@ -60,8 +73,15 @@ __all__ = [
     "InvocationRecord", "MetricsRegistry",
     "CudaOracle", "CudaKernelSpec", "MeasurementStore", "MeasurementSet",
     "MissingMeasurementError",
-    "PLMRequirement",
-    "ExplorationSession", "ProgressEvent",
+    "PLMRequirement", "MemoryGroup", "MemoryPlan", "MemoryCompatGraph",
+    "exclusive_pairs", "PLMPlanner", "UnitSystem", "fit_unit_system",
+    "smem_area_bytes",
+    "CalibrationFit", "CalibratedTool", "fit_latency_scales",
+    "fit_area_scale", "calibrate_to_records",
+    "App", "Backend", "register_app", "register_backend", "get_app",
+    "get_backend", "list_apps", "list_backends", "build_tool",
+    "build_session", "build_query_session",
+    "ExplorationSession", "ProgressEvent", "DSEQuery",
     "ComponentSpec", "LoopNest", "HLSTool", "MemGen", "PLM", "PLMSpec",
     "CharacterizationResult", "characterize_component", "spans",
     "ComponentModel", "PiecewiseLinearCost", "PlanPoint", "Schedule",

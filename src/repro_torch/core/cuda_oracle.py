@@ -22,10 +22,13 @@ physical point is timed exactly once per process, so a batched drive
 prices identically to a sequential one — and flow through a
 :class:`MeasurementSet` for record/replay: a keyed map
 ``(tile, device_kind) -> MeasurementStore`` the oracle routes every
-request through.  ``mode="record"`` times and persists,
-``mode="replay"`` is fully deterministic and needs no card.  Components
-without a kernel fall back to a wrapped analytical tool, so a mixed
-system (the full WAMI TMG) still explores end-to-end.
+request through.  Tiles with a recording replay their measured walls;
+unrecorded tiles fall through to the analytical ``fallback`` (or raise,
+under ``missing="error"``), so a tile knob axis stays deterministic even
+when only some tiles are measured.  ``mode="record"`` times and
+persists, ``mode="replay"`` is fully deterministic and needs no card.
+Components without a kernel fall back to a wrapped analytical tool, so
+a mixed system (the full WAMI TMG) still explores end-to-end.
 
 A reading is the device time of ``CudaOracle.LAUNCHES_PER_READING``
 (20) back-to-back launches between two CUDA events, divided by that
@@ -40,7 +43,7 @@ import json
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -48,6 +51,7 @@ from ..utils import resolve_device
 from .knobs import CDFGFacts, Synthesis, SynthesisTool
 from .oracle import OracleBatchMixin, call_synthesize
 from .plm.spec import PLMRequirement
+from .plm.units import smem_area_bytes
 
 __all__ = [
     "CudaKernelSpec",
@@ -55,6 +59,7 @@ __all__ = [
     "MeasurementSet",
     "MissingMeasurementError",
     "CudaOracle",
+    "open_store",
     "open_recording",
     "device_smem_budget",
     "device_time_s",
@@ -313,12 +318,36 @@ class MeasurementSet:
             out._stores.setdefault((0, kind), store)
         return out
 
+    @classmethod
+    def load(cls, paths: Iterable[str], *, flush_every: int = 0,
+             device_kind: Optional[str] = None) -> "MeasurementSet":
+        """Load several store files, keyed by their ``meta`` tags."""
+        out = cls()
+        for path in paths:
+            store = MeasurementStore.load(path, flush_every=flush_every)
+            out.add(store, device_kind=device_kind)
+        return out
+
+    def add(self, store: MeasurementStore, *, tile: Optional[int] = None,
+            device_kind: Optional[str] = None) -> "MeasurementSet":
+        key = (int(tile if tile is not None else store.tile),
+               device_kind or store.device_kind)
+        if key in self._stores:
+            raise ValueError(f"MeasurementSet already holds a store for "
+                             f"key (tile={key[0]}, device={key[1]!r})")
+        self._stores[key] = store
+        return self
+
     # -- lookup --------------------------------------------------------
     def get(self, tile: int, device_kind: str) -> Optional[MeasurementStore]:
         return self._stores.get((int(tile), device_kind))
 
     def keys(self) -> List[SetKey]:
         return sorted(self._stores)
+
+    def tiles(self, device_kind: Optional[str] = None) -> Tuple[int, ...]:
+        return tuple(sorted({t for t, k in self._stores
+                             if device_kind is None or k == device_kind}))
 
     def stores(self) -> List[MeasurementStore]:
         """The distinct stores (aliases collapse), in key order."""
@@ -336,6 +365,9 @@ class MeasurementSet:
     def describe(self) -> str:
         return ", ".join(f"(tile={t}, device={k!r})" for t, k in self.keys()) \
             or "<empty>"
+
+    def __contains__(self, key: SetKey) -> bool:
+        return (int(key[0]), key[1]) in self._stores
 
     def __len__(self) -> int:
         return len(self._stores)
@@ -368,28 +400,47 @@ class CudaOracle(OracleBatchMixin):
 
     ``native_tile`` declares the tile the ``components`` kernel specs
     were built at; a request's tile resolves to it when unset (tile 0).
-    The native tile with a recording (or any measure-mode request at
-    it) is priced by its kernel; any other tile is routed to the
-    fallback tool.
+    A resolved tile with a recording in ``measurements`` replays (or
+    records) measured walls; any other tile is routed to the fallback
+    tool, which re-prices the component at that tile analytically (pair
+    with a unit-calibrated fallback, :mod:`repro_torch.core.plm.units`,
+    to keep the axes comparable).  ``components_factory(tile)`` — when
+    given — rebuilds the kernel specs at a measured non-native tile, so
+    multi-tile recordings price (and record) with the right geometry.
+
+    ``missing`` picks the replay behaviour for a point absent from the
+    resolved recording: ``"error"`` (default) raises
+    :class:`MissingMeasurementError` naming the missing
+    ``(tile, device_kind)`` key; ``"fallback"`` prices it through the
+    fallback tool instead, which is what a drive whose walk *extends*
+    the recorded one (the tile knob reshapes the LP and hence the mapped
+    unroll choices) needs to stay deterministic.  ``record_hint`` is the
+    app's re-record command, shown in a miss's error.
     """
 
     #: readings per point (the best is kept) and launches per reading
     REPS = 3
     LAUNCHES_PER_READING = 20
-    #: fixed per-bank overhead (descriptors, barriers) in the area model
-    BANK_OVERHEAD_BYTES = 4096
 
     def __init__(self, components: Dict[str, CudaKernelSpec], *,
                  mode: str = "measure",
                  measurements: Optional[MeasurementSet] = None,
+                 components_factory: Optional[
+                     Callable[[int], Dict[str, CudaKernelSpec]]] = None,
                  fallback: Optional[SynthesisTool] = None,
                  device=None,
                  device_kind: Optional[str] = None,
                  smem_budget: Optional[int] = None,
                  native_tile: int = 0,
+                 missing: str = "error",
+                 record_hint: Optional[str] = None,
                  timer: Optional[Callable[..., float]] = None):
         if mode not in ("measure", "record", "replay"):
             raise ValueError(f"unknown mode {mode!r}")
+        if missing not in ("error", "fallback"):
+            raise ValueError(f"unknown missing policy {missing!r}")
+        if missing == "fallback" and fallback is None:
+            raise ValueError("missing='fallback' requires a fallback tool")
         if mode in ("record", "replay") and (measurements is None
                                              or len(measurements) == 0):
             raise ValueError(f"mode={mode!r} requires a non-empty "
@@ -404,7 +455,10 @@ class CudaOracle(OracleBatchMixin):
         self.measurements = measurements or MeasurementSet()
         self.fallback = fallback
         self.native_tile = int(native_tile)
+        self.missing = missing
+        self.record_hint = record_hint
         self.timer = timer
+        self._factory = components_factory
         # tiles whose requests resolve onto the native ``components``
         # specs: the declared native tile, the untagged 0, and whatever
         # tile the native store's meta carries
@@ -412,6 +466,7 @@ class CudaOracle(OracleBatchMixin):
         native_store = self.store
         if native_store is not None and native_store.tile:
             self._native_tiles.add(native_store.tile)
+        self._specs_cache: Dict[int, Dict[str, CudaKernelSpec]] = {}
         self._measured: Dict[Tuple[str, int, int, int], float] = {}
         self._lock = threading.Lock()
         # timing under a thread-pool fan-out measures contention, not the
@@ -435,12 +490,26 @@ class CudaOracle(OracleBatchMixin):
     def _store_for(self, resolved: int) -> Optional[MeasurementStore]:
         return self.measurements.get(resolved, self.device_kind)
 
+    def _specs_for(self, resolved: int
+                   ) -> Optional[Dict[str, CudaKernelSpec]]:
+        if resolved in self._native_tiles:
+            return self.components
+        if self._factory is None:
+            return None
+        with self._lock:
+            specs = self._specs_cache.get(resolved)
+        if specs is None:
+            specs = dict(self._factory(resolved))
+            with self._lock:
+                specs = self._specs_cache.setdefault(resolved, specs)
+        return specs
+
     def _measured_here(self, component: str, resolved: int) -> bool:
         """True when (component, resolved tile) is priced by running /
         replaying a kernel rather than by the fallback tool."""
         if component not in self.components:
             return False        # kernel coverage is per component name
-        if resolved not in self._native_tiles:
+        if resolved not in self._native_tiles and self._factory is None:
             return False
         if self.mode in ("record", "replay"):
             return self._store_for(resolved) is not None
@@ -452,6 +521,16 @@ class CudaOracle(OracleBatchMixin):
     def _time_runner(self, runner: Callable[[], Any]) -> float:
         return device_time_s(runner, launches=self.LAUNCHES_PER_READING,
                              reps=self.REPS, device=self.device)
+
+    def _missing_error(self, key: MeasureKey, resolved: int
+                       ) -> MissingMeasurementError:
+        comp, ports, unrolls = key
+        hint = self.record_hint or "re-record the recording for this key"
+        return MissingMeasurementError(
+            f"no recorded measurement for {comp!r} (ports={ports}, "
+            f"unrolls={unrolls}) under key (tile={resolved}, "
+            f"device={self.device_kind!r}); recorded keys: "
+            f"{self.measurements.describe()}; {hint}")
 
     def _wall_s(self, spec: CudaKernelSpec, ports: int, unrolls: int,
                 resolved: int) -> float:
@@ -465,11 +544,7 @@ class CudaOracle(OracleBatchMixin):
         if self.mode == "replay":
             wall = store.get(key)
             if wall is None:
-                raise MissingMeasurementError(
-                    f"no recorded measurement for {spec.name!r} "
-                    f"(ports={ports}, unrolls={unrolls}) under key "
-                    f"(tile={resolved}, device={self.device_kind!r}); "
-                    f"recorded keys: {self.measurements.describe()}")
+                raise self._missing_error(key, resolved)
         elif self.mode == "record" and store.get(key) is not None:
             # resumed campaign: the point was already paid for (and
             # flushed) by the killed run — never re-time it
@@ -497,14 +572,6 @@ class CudaOracle(OracleBatchMixin):
     # ------------------------------------------------------------------
     # cost composition
     # ------------------------------------------------------------------
-    def _area_bytes(self, spec: CudaKernelSpec, ports: int,
-                    unrolls: int) -> float:
-        H, W = spec.shape
-        step = spec.vmem_bytes(H, W, ports=ports, unrolls=unrolls)
-        # double-buffered working set in every parallel bank + fixed
-        # per-bank overhead
-        return float(2 * step * ports + self.BANK_OVERHEAD_BYTES * ports)
-
     def _infeasible(self, ports: int, unrolls: int, states: int,
                     tile: int = 0) -> Synthesis:
         return Synthesis(lam=float("inf"), area=float("inf"), ports=ports,
@@ -514,18 +581,39 @@ class CudaOracle(OracleBatchMixin):
     # ------------------------------------------------------------------
     # SynthesisTool protocol
     # ------------------------------------------------------------------
+    def _route_fallback(self, component: str, tile: int) -> bool:
+        """True when (component, tile) is priced by the fallback tool:
+        the component has no kernel, or the resolved tile has no
+        recording (and cannot be measured live)."""
+        return not self._measured_here(component, self._resolve_tile(tile))
+
     def synthesize(self, component: str, *, unrolls: int, ports: int,
                    max_states: Optional[int] = None,
                    tile: int = 0) -> Synthesis:
         resolved = self._resolve_tile(tile)
-        if not self._measured_here(component, resolved):
+        measured = self._measured_here(component, resolved)
+        if (tile and not measured and not self.native_tile
+                and self._factory is None
+                and component in self.components):
+            # without a declared native tile (or a spec factory, or a
+            # recording covering this tile) the oracle cannot tell
+            # whether the request matches the kernels — pricing it
+            # anyway would fabricate a tile axis out of one tile's
+            # measurements (and collide store keys in record mode)
+            raise ValueError(
+                f"tile={tile} requested for {component!r} but this "
+                f"CudaOracle declares no native_tile and no recording "
+                f"covers key (tile={tile}, device={self.device_kind!r}) "
+                f"(recorded keys: {self.measurements.describe()}); pass "
+                f"native_tile= or add a MeasurementStore for that key")
+        if not measured:
             if self.fallback is None:
                 raise KeyError(f"no CUDA kernel or fallback tool for "
                                f"component {component!r} (tile={tile})")
             return call_synthesize(self.fallback, component,
                                    unrolls=unrolls, ports=ports,
                                    max_states=max_states, tile=tile)
-        spec = self.components[component]
+        spec = self._specs_for(resolved)[component]
         if not spec.divisible(ports, unrolls):
             return self._infeasible(ports, unrolls, 0, tile)
         states = spec.states(ports, unrolls)
@@ -538,9 +626,17 @@ class CudaOracle(OracleBatchMixin):
             # memory — discarded, and counted, like any other failed
             # synthesis
             return self._infeasible(ports, unrolls, states, tile)
-        wall = self._wall_s(spec, ports, unrolls, resolved)
+        try:
+            wall = self._wall_s(spec, ports, unrolls, resolved)
+        except MissingMeasurementError:
+            if self.missing != "fallback":
+                raise
+            return call_synthesize(self.fallback, component,
+                                   unrolls=unrolls, ports=ports,
+                                   max_states=max_states, tile=tile)
         lam = wall / ports                       # parallel column banks
-        area = self._area_bytes(spec, ports, unrolls)
+        # the one area rule the unit fit shares
+        area = smem_area_bytes(spec, ports, unrolls)
         return Synthesis(
             lam=lam, area=area, ports=ports, unrolls=unrolls,
             states_per_iter=states, feasible=True,
@@ -550,20 +646,28 @@ class CudaOracle(OracleBatchMixin):
             tile=tile)
 
     def cdfg_facts(self, component: str, synth: Synthesis) -> CDFGFacts:
-        if not self._measured_here(component,
-                                   self._resolve_tile(synth.tile)):
+        # a feasible measured-tile synthesis without a measured wall came
+        # from the missing="fallback" path: its Eq. (1) facts must match
+        # the model that actually scheduled it, or the derived caps get
+        # applied across two different state models
+        fallback_priced = (self.missing == "fallback" and synth.feasible
+                           and "wall_s" not in (synth.detail or {}))
+        if self._route_fallback(component, synth.tile) or fallback_priced:
             if self.fallback is None:
                 raise KeyError(component)
             return self.fallback.cdfg_facts(component, synth)
-        return self.components[component].facts()
+        return self._specs_for(
+            self._resolve_tile(synth.tile))[component].facts()
 
     def plm_requirement(self, component: str, synth: Synthesis):
         """The measured component's memory demand: its entire area IS
         on-chip footprint, so capacity = area bytes and the datapath
         share is zero.  Fallback-priced points delegate to the fallback
-        tool."""
-        if not self._measured_here(component,
-                                   self._resolve_tile(synth.tile)):
+        tool — including measured-tile points the ``missing="fallback"``
+        policy priced analytically, recognizable by the absence of the
+        measured ``wall_s`` detail."""
+        if (self._route_fallback(component, synth.tile)
+                or "wall_s" not in (synth.detail or {})):
             fn = getattr(self.fallback, "plm_requirement", None)
             return None if fn is None else fn(component, synth)
         area = float(synth.area)
@@ -585,21 +689,27 @@ class CudaOracle(OracleBatchMixin):
         return saved[0] if saved else None
 
 
+def open_store(path: str, *, mode: str, tile: int = 0, device_kind: str,
+               flush_every: int = 16) -> MeasurementStore:
+    """One recording for a drive in ``mode``: load ``path`` when it
+    exists (replay always loads — a missing file should fail loudly),
+    otherwise start a fresh store tagged with ``tile`` and
+    ``device_kind`` for a record (or measure) campaign.  Record mode
+    autoflushes every ``flush_every`` timings; replay never writes."""
+    autoflush = flush_every if mode == "record" else 0
+    if mode == "replay" or os.path.exists(path):
+        return MeasurementStore.load(path, flush_every=autoflush)
+    return MeasurementStore(path,
+                            meta={"tile": tile, "interpret": False,
+                                  "device_kind": device_kind},
+                            flush_every=autoflush)
+
+
 def open_recording(path: str, *, mode: str, tile: int = 0,
                    device_kind: str,
                    flush_every: int = 16) -> MeasurementSet:
-    """The record/replay bootstrap: load ``path`` when it exists (replay
-    always loads — a missing file should fail loudly), otherwise start a
-    fresh store tagged with ``tile`` and ``device_kind`` for a record
-    campaign, and wrap the result as a single-recording
-    :class:`MeasurementSet`.  Record mode autoflushes every
-    ``flush_every`` timings; replay never writes."""
-    autoflush = flush_every if mode == "record" else 0
-    if mode == "replay" or os.path.exists(path):
-        store = MeasurementStore.load(path, flush_every=autoflush)
-    else:
-        store = MeasurementStore(path,
-                                 meta={"tile": tile, "interpret": False,
-                                       "device_kind": device_kind},
-                                 flush_every=autoflush)
-    return MeasurementSet.from_store(store, tile=tile)
+    """The record/replay bootstrap: :func:`open_store`, wrapped as a
+    single-recording :class:`MeasurementSet`."""
+    return MeasurementSet.from_store(
+        open_store(path, mode=mode, tile=tile, device_kind=device_kind,
+                   flush_every=flush_every), tile=tile)

@@ -33,7 +33,7 @@ from .pareto import DesignPoint, pareto_front_max_min
 from .planning import ComponentModel, PlanPoint, Schedule, sweep, theta_bounds
 from .tmg import TMG
 
-__all__ = ["SystemPoint", "CosmosResult", "ProgressEvent",
+__all__ = ["SystemPoint", "CosmosResult", "ProgressEvent", "DSEQuery",
            "ExplorationSession"]
 
 
@@ -41,11 +41,13 @@ __all__ = ["SystemPoint", "CosmosResult", "ProgressEvent",
 class SystemPoint:
     """A mapped system implementation (one point of Fig. 10).
 
-    ``cost_actual`` is the paper's per-component cost sum.
-    ``cost_unshared``, ``plm_groups`` and ``memory_plan`` are the fields
-    a system-level PLM planner fills; this package has no planner yet,
-    so they keep their empty defaults (and the point's ``repr`` stays
-    field-for-field comparable with a planner-capable drive).
+    When the session carries a PLM planner, ``cost_actual`` is the
+    planned shared-memory system cost, ``cost_unshared`` keeps the
+    paper's naive per-component sum for comparison, ``plm_groups``
+    records the shared-bank grouping (members of singleton groups are
+    omitted), and ``memory_plan`` is the full emitted plan.  Without a
+    planner ``cost_unshared`` is None and ``cost_actual`` is the naive
+    sum.
     """
 
     theta_planned: float
@@ -87,6 +89,31 @@ class CosmosResult:
 
 
 @dataclass(frozen=True)
+class DSEQuery:
+    """One DSE request, as data: the session-as-query entry point.
+
+    Everything :func:`~repro_torch.core.registry.build_session` resolves
+    — app, backend, budget (``delta``), PLM sharing, tile axes,
+    fan-out.  Hashable, so a query can key caches.
+    """
+
+    app: str
+    backend: str = "analytical"
+    delta: Optional[float] = None
+    share_plm: bool = False
+    tile_sizes: Optional[Tuple[int, ...]] = None
+    tiles: Optional[Tuple[int, ...]] = None
+    workers: int = 1
+
+    def __post_init__(self):
+        # tolerate list inputs (queries arrive from JSON-ish callers)
+        for name in ("tile_sizes", "tiles"):
+            val = getattr(self, name)
+            if val is not None and not isinstance(val, tuple):
+                object.__setattr__(self, name, tuple(val))
+
+
+@dataclass(frozen=True)
 class ProgressEvent:
     """One progress tick: ``done``/``total`` work units within ``phase``."""
 
@@ -109,6 +136,17 @@ class ExplorationSession:
     sequential drive, call for call).  ``fixed`` maps software
     components (Matrix-Inv in Fig. 8) to their fixed effective latency —
     they join the TMG but are never synthesized.
+    ``memory_planner`` (a :class:`~repro_torch.core.plm.planner.PLMPlanner`)
+    replaces the map phase's naive per-component cost sum with the
+    planned shared-PLM system cost; the naive sum is kept on every
+    :class:`SystemPoint` as ``cost_unshared``.  Each plan point's solved
+    LP schedule is handed to the planner (when its ``plan_point``
+    accepts one), opening the schedule-conditional certificate tier.
+    ``verify_plans=True`` adds a strict post-pass: every emitted memory
+    plan is independently re-proved race-free by
+    :mod:`repro_torch.core.analysis.verify`, and the session raises
+    :class:`~repro_torch.core.analysis.verify.PlanVerificationError` on
+    the first violation instead of returning an unsound point.
     """
 
     def __init__(self, tmg: TMG, tool, spaces: Dict[str, KnobSpace], *,
@@ -117,12 +155,16 @@ class ExplorationSession:
                  ledger: Optional[OracleLedger] = None,
                  cache: Optional[OracleCache] = None,
                  workers: int = 1,
+                 memory_planner=None,
+                 verify_plans: bool = False,
                  on_event: Optional[Callable[[ProgressEvent], None]] = None):
         self.tmg = tmg
         self.spaces = dict(spaces)
         self.delta = float(delta)
         self.fixed = dict(fixed or {})
         self.workers = max(1, int(workers))
+        self.memory_planner = memory_planner
+        self.verify_plans = bool(verify_plans)
         self.on_event = on_event
         if ledger is not None:
             if cache is not None:
@@ -227,7 +269,7 @@ class ExplorationSession:
         def one(plan_pt: PlanPoint) -> SystemPoint:
             outcomes: List[MapOutcome] = []
             lam_actual: Dict[str, float] = {}
-            cost = 0.0
+            cost_naive = 0.0
             for name in self._names():
                 if name in self.fixed:
                     lam_actual[name] = self.fixed[name]
@@ -237,8 +279,16 @@ class ExplorationSession:
                                  plan_pt.lam_targets[name])
                 outcomes.append(out)
                 lam_actual[name] = out.synthesis.lam
-                cost += out.synthesis.area
+                cost_naive += out.synthesis.area
             theta_actual = self.tmg.throughput(lam_actual)
+            cost_actual, cost_unshared, groups = cost_naive, None, ()
+            mem = None
+            if self.memory_planner is not None:
+                mem = self._plan_memory(plan_pt, outcomes)
+                cost_actual = mem.system_cost
+                cost_unshared = cost_naive
+                groups = tuple(g.members for g in mem.groups
+                               if len(g.members) > 1)
             with self._progress_lock:
                 done[0] += 1
                 n_done = done[0]
@@ -247,12 +297,34 @@ class ExplorationSession:
             return SystemPoint(theta_planned=plan_pt.theta,
                                cost_planned=plan_pt.cost,
                                theta_actual=theta_actual,
-                               cost_actual=cost,
+                               cost_actual=cost_actual,
                                outcomes=tuple(outcomes),
+                               cost_unshared=cost_unshared,
+                               plm_groups=groups,
+                               memory_plan=mem,
                                schedule=plan_pt.schedule)
 
         self.mapped = self._pool_map(one, planned)
         return self.mapped
+
+    def _plan_memory(self, plan_pt: PlanPoint,
+                     outcomes: Sequence[MapOutcome]):
+        """Run the memory planner for one mapped point, handing it the
+        plan point's LP schedule when the planner can take one, and —
+        under ``verify_plans`` — re-proving the emitted plan sound."""
+        import inspect
+        synths = {o.component: o.synthesis for o in outcomes}
+        planner = self.memory_planner
+        params = inspect.signature(planner.plan_point).parameters
+        kwargs: Dict[str, Any] = {}
+        if "schedule" in params:
+            kwargs["schedule"] = plan_pt.schedule
+        # pre-schedule custom planners get no keyword
+        mem = planner.plan_point(self.ledger, synths, **kwargs)
+        if self.verify_plans:
+            from .analysis.verify import assert_plan_sound
+            assert_plan_sound(mem, self.tmg, plan_pt.schedule)
+        return mem
 
     # -- results -------------------------------------------------------
     def run(self) -> CosmosResult:
@@ -277,3 +349,12 @@ class ExplorationSession:
                             invocations=inv,
                             theta_min=self.theta_min,
                             theta_max=self.theta_max)
+
+    # -- session-as-query ----------------------------------------------
+    @classmethod
+    def from_query(cls, query: DSEQuery, **kwargs) -> "ExplorationSession":
+        """Resolve a :class:`DSEQuery` through the App/Backend registry.
+        Keywords (``ledger``, ``tool``, ``verify_plans``, ...) flow to
+        :func:`~repro_torch.core.registry.build_query_session`."""
+        from .registry import build_query_session   # lazy: registry imports us
+        return build_query_session(query, **kwargs)

@@ -16,10 +16,10 @@
 #define WAMI_EXPORT KERNEL_EXPORT
 
 // threads of an elementwise CTA: the tile's pixel count rounded up to a
-// whole warp, at most 256
-static inline int wami_threads(int pixels) {
-    const int warps = (pixels + 31) / 32;
-    return warps >= 8 ? 256 : 32 * warps;
+// whole warp, at most `most` (256 unless the kernel says otherwise)
+static inline int wami_threads(int pixels, int most = 256) {
+    const int threads = 32 * ((pixels + 31) / 32);
+    return threads < most ? threads : most;
 }
 
 // CTA (blockIdx.x, blockIdx.y)'s tile: its first row and column

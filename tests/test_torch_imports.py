@@ -35,4 +35,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.kernels.ssd_scan.kernel" in got["modules"]
     assert "repro_torch.apps.fleet.pipeline" in got["modules"]
     assert "repro_torch.core.xlatool" in got["modules"]
+    # the registry and the memory side of COSMOS
+    assert "repro_torch.core.registry" in got["modules"]
+    assert "repro_torch.core.plm.planner" in got["modules"]
+    assert "repro_torch.core.analysis.verify" in got["modules"]
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"

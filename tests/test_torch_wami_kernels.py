@@ -406,6 +406,64 @@ def test_grayscale_steep_launch_geometry_at_every_table1_point(stage,
     assert geometry(30, 64, ports=1, unrolls=5) == (96, 1)
 
 
+def test_warp_launch_geometry_at_every_table1_point():
+    """The warp takes a thread a pixel in tiles of at most 1,024 pixels
+    and a thread per run of 4 output pixels (16 gathers in flight) in
+    larger ones, up to 1,024 threads a CTA either way: one pass over
+    every Table-1 tile of the 128 x 128 frame, at most two at 512 x 512
+    (ports 1, unrolls 16: 2,048 runs); a frame whose width is not a
+    multiple of 4 runs one scalar pixel a thread, and a tile off the
+    16-byte grid adds a scalar head or tail."""
+    geometry = twarp.kernel.warp_geometry
+    max_ports, max_unrolls = WAMI_KNOB_TABLE["warp"]
+    assert (max_ports, max_unrolls) == (8, 16)
+    passes = {}
+    for n in (TILE, 512):
+        for ports in range(1, max_ports + 1):
+            for unrolls in range(1, max_unrolls + 1):
+                if n % ports or n % unrolls:
+                    continue
+                threads, p = geometry(n, n, ports=ports, unrolls=unrolls)
+                assert threads <= 1024 and threads % 32 == 0
+                pixels = unrolls * (n // ports)
+                items = pixels if pixels <= 1024 else pixels // 4
+                assert threads == min(1024, -(-items // 32) * 32)
+                passes[n] = max(passes.get(n, 0), p)
+    assert passes == {TILE: 1, 512: 2}
+    assert geometry(512, 512, ports=1, unrolls=16) == (1024, 2)
+    # the DSE's default (1, 8) at tile 128: 1,024 pixels, a thread each
+    assert geometry(TILE, TILE, ports=1, unrolls=8) == (1024, 1)
+    # 2,048 pixels: 512 runs
+    assert geometry(TILE, TILE, ports=1, unrolls=16) == (512, 1)
+    # W % 4 != 0: every pixel scalar (30 pixels of a 6-column tile; 495
+    # of a 33-column tile)
+    assert geometry(30, 66, ports=11, unrolls=5) == (32, 1)
+    assert geometry(30, 66, ports=2, unrolls=15) == (512, 1)
+    # above 1,024 pixels: every pixel scalar where W % 4 != 0 (1,980
+    # pixels, two passes); whole runs (480); 18-column tiles at 72, off
+    # the 16-byte grid, run 4 runs between a head and a tail of 2 (six
+    # items a row, 64 rows); at most 1,024 pixels, a thread a pixel
+    assert geometry(30, 66, ports=1, unrolls=30) == (1024, 2)
+    assert geometry(30, 64, ports=1, unrolls=30) == (480, 1)
+    assert geometry(64, 72, ports=4, unrolls=64) == (384, 1)
+    assert geometry(32, 72, ports=4, unrolls=16) == (288, 1)
+    assert geometry(30, 64, ports=1, unrolls=5) == (320, 1)
+
+
+@pytest.mark.parametrize("package,source", [
+    (tgray, "wami_grayscale"), (twarp, "wami_warp")])
+def test_scalar_pixel_limit_matches_the_c_source(package, source):
+    """The Python mirror's one-pixel-a-thread limit is the kernel's
+    ``kScalarPixels`` (the C source is parsed; it cannot be compiled
+    here)."""
+    import os
+    import re
+    from repro_torch.kernels.build import CSRC_DIR
+    with open(os.path.join(CSRC_DIR, f"{source}.cu")) as f:
+        m = re.search(r"constexpr int kScalarPixels = (\d+);", f.read())
+    assert m and int(m.group(1)) == package.kernel.SCALAR_PIXELS
+
+
 def test_grayscale_plain_version_is_the_kernels_float32_arithmetic():
     """The plain version's luma is float32 products by the float32
     constants, summed left to right and rounded at each step: the
