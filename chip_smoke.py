@@ -62,8 +62,26 @@ which fails the run on any error:
      calibrated fallback, which a fresh recording cannot fit);
      each replays to the same front, every point's planned cost is at
      most its per-component sum, every plan is re-proved by the
-     verifier, the WAMI drive shares the LK loop's certified banks
-     somewhere, and every kernel of each drive launches;
+     verifier, at every WAMI point the structural-only plan (the one
+     the planner weighs the schedule-aware plan against) shares banks
+     only within the LK loop and costs no less than the plan chosen, on
+     some point it shares the LK loop's certified banks, and every
+     kernel of each drive launches.  Then the DSE
+     service (``[service]``), its counts zeroed just before and read
+     just after: ``DSEService(max_pending=8, workers=3)`` serves six
+     tenants at once (``SERVICE_TENANTS``) over four pools, three of
+     which time the kernels live (the share-PLM WAMI drive over this
+     run's recordings, the fleet, and two WAMI tenants sharing pool D);
+     every tenant's front and invocations must equal an isolated
+     session's over its pool's prices, pool D must time no point twice
+     and at most 1.5x phase 4's wall at any point both timed, every
+     kernel must launch, and the Chrome trace (``build/``) must pass the
+     schema with outcomes equal to the tenants' ledgers.  A measured
+     WAMI drive through a durable cache is then killed after 40 flushed
+     points and resumed in a new process (``[kill-resume]``: fewer
+     timings, replays, the final cache's front), and the analytical
+     drives check whole-grid pricing and the guided walk
+     (``[pricing]``);
   5. times   — each kernel, its plain version and (where one exists) one
      PyTorch library call on the same inputs: device time per call by
      CUDA events with the host's issue time kept out (as the oracle
@@ -92,13 +110,17 @@ writes every number of the run to a JSON file.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -576,7 +598,8 @@ def _share_plm_drive(tag, app, dev, counters, plain, **opts):
              f"{tag}: replaying the share-PLM recordings changed the front")
     print(f"[share-plm] {tag}: replay of the recordings reproduces the "
           f"front", flush=True)
-    return res, {"launches": launches, "invocations": res.invocations,
+    return session, res, {"launches": launches,
+                          "invocations": res.invocations,
                  "wall_s": wall, "recorded_points": stores,
                  "front_points": _front_points(res),
                  "points": [[m.theta_actual, m.cost_actual,
@@ -590,7 +613,12 @@ def phase_share_plm(dev, table, rec_dir, dse, fleet_dse):
     new points are timed, and the calibrated fallback is fitted from the
     card's own tile-128 walls; tile 64 is recorded afresh), then the
     fleet's, recorded afresh.  The LK-loop group the TMG certifies must
-    form on some WAMI point."""
+    form on some WAMI point: each point's structural-only plan, which
+    the planner weighs against the schedule-aware one and which depends
+    only on the point's PLM requirements, must share banks within the
+    LK loop alone and on some point must share them; the plan chosen
+    may mix in a schedule-certified stage wherever that is cheaper, so
+    which groups it forms moves with the live walls."""
     import dataclasses
     from repro_torch.apps.wami import wami_tmg
     from repro_torch.core import exclusive_pairs, get_app
@@ -599,23 +627,465 @@ def phase_share_plm(dev, table, rec_dir, dse, fleet_dse):
     wami = dataclasses.replace(
         get_app("wami"), measurement_path=lambda t: os.path.join(
             rec_dir, f"wami_cuda_tile{t}.json"))
-    res, out_wami = _share_plm_drive(
+    session, res, out_wami = _share_plm_drive(
         "wami", wami, dev, {k["name"]: k["counter"] for k in table}, dse,
         tiles=WAMI_TILES)
     certified = exclusive_pairs(wami_tmg())
-    lk = [g for m in res.mapped for g in m.plm_groups
-          if all(frozenset((u, v)) in certified
-                 for i, u in enumerate(g) for v in g[i + 1:])]
+
+    def in_loop(g):
+        return all(frozenset((u, v)) in certified
+                   for i, u in enumerate(g) for v in g[i + 1:])
+
+    lk, chosen = set(), set()
+    for m in res.mapped:
+        reqs = [r for g in m.memory_plan.groups for r in g.requirements]
+        base = session.memory_planner.plan(reqs)
+        shared = [g.members for g in base.groups if len(g.members) > 1]
+        _require(all(in_loop(g) for g in shared),
+                 f"wami: a structural-only plan shares banks outside the "
+                 f"LK loop: {shared}")
+        _require(m.memory_plan.system_cost <= base.system_cost,
+                 f"wami: the plan chosen at theta {m.theta_actual:.6g} "
+                 f"costs more than the structural-only one")
+        lk.update(shared)
+        chosen.update(g for g in m.plm_groups
+                      if any(frozenset((u, v)) in certified
+                             for i, u in enumerate(g) for v in g[i + 1:]))
     _require(lk, "wami: no point shares the LK loop's certified banks")
-    print(f"[share-plm] wami: groups the one-token LK cycle certifies: "
-          f"{sorted(set(lk))}", flush=True)
+    out_wami["lk_groups"] = [list(g) for g in sorted(lk)]
+    print(f"[share-plm] wami: groups the one-token LK cycle certifies in "
+          f"the structural-only plans: {sorted(lk)}; chosen groups holding "
+          f"a certified pair: {sorted(chosen)}", flush=True)
     fleet = dataclasses.replace(
         get_app("fleet"), measurement_path=lambda t=0: os.path.join(
             rec_dir, "fleet_share_plm_cuda.json"))
-    _, out_fleet = _share_plm_drive(
+    _, _, out_fleet = _share_plm_drive(
         "fleet", fleet, dev, {"flash_attention": flash_attention_kernel,
                               "ssd_scan": ssd_scan_kernel}, fleet_dse)
     return {"wami": out_wami, "fleet": out_fleet}
+
+
+# ----------------------------------------------------------------------
+# the DSE service on the card
+# ----------------------------------------------------------------------
+# (tenant, app, backend, delta, share_plm, tiles), all submitted at once:
+# t0-t3 the JAX package's acceptance run (its t2 on the pallas backend),
+# t4 and t5 two tenants whose live kernel timings share one pool
+SERVICE_TENANTS = (
+    ("t0", "wami", "analytical", None, False, None),
+    ("t1", "wami", "analytical", 0.5, False, None),
+    ("t2", "wami-card", "cuda", None, True, WAMI_TILES),
+    ("t3", "fleet", "cuda", None, False, None),
+    ("t4", "wami", "cuda", None, False, None),
+    ("t5", "wami", "cuda", 0.5, False, None),
+)
+# the pool of t4 and t5
+POOL_D = ("wami", "cuda", False, ())
+# the killed drive is stopped once its cache's newest step holds this
+# many points
+KILL_AFTER_ENTRIES = 40
+
+
+class _PoolReplay:
+    """A tool that answers from a pool's cache (keyed as the ledger keys
+    a point) and takes facts and memory demands from the pool's own
+    tool: an isolated session over it sees the prices the pool's tenants
+    saw, with no kernel timed again."""
+
+    def __init__(self, entries, tool):
+        self.entries, self.tool = entries, tool
+
+    def synthesize(self, component, *, unrolls, ports, max_states=None,
+                   tile=0):
+        key = (component, unrolls, ports, max_states, tile)
+        try:
+            return self.entries[key]
+        except KeyError:
+            raise KeyError(f"{key} is not in the pool's cache") from None
+
+    def cdfg_facts(self, component, synth):
+        return self.tool.cdfg_facts(component, synth)
+
+    def plm_requirement(self, component, synth):
+        return self.tool.plm_requirement(component, synth)
+
+
+@contextlib.contextmanager
+def _counting_timings():
+    """Counts, per ``CudaOracle`` (by ``id``), the kernel timings it
+    makes on the card while the block runs."""
+    from repro_torch.core.cuda_oracle import CudaOracle
+    counts, lock = collections.Counter(), threading.Lock()
+    plain = CudaOracle._time_runner
+
+    def counted(self, runner):
+        with lock:
+            counts[id(self)] += 1
+        return plain(self, runner)
+
+    CudaOracle._time_runner = counted
+    try:
+        yield counts
+    finally:
+        CudaOracle._time_runner = plain
+
+
+def _kernel_points(cache):
+    """The distinct kernel timings behind a pool's cached points: a
+    point priced by a kernel carries its wall; points that differ only
+    in their state cap share one timing."""
+    return {(k[0], k[1], k[2], k[4]) for k, s in cache.entries().items()
+            if "wall_s" in (s.detail or {})}
+
+
+def _tenant_of(tracer):
+    """span -> the tenant whose ``service.run`` span it descends from."""
+    by_id = {s.span_id: s for s in tracer.spans()}
+
+    def tenant(span):
+        while span is not None:
+            if span.name == "service.run":
+                return span.attrs["tenant"]
+            span = by_id.get(span.parent_id)
+        return None
+    return tenant
+
+
+def phase_service(dev, table, rec_dir, dse):
+    """The DSE service on the card: six tenants over four pools, three of
+    them timing the kernels live.  Each tenant's front and invocations
+    must equal an isolated session's over the same prices; pool D must
+    time no point twice, at walls within 1.5x phase 4's; the Chrome
+    trace must validate and reconcile with the ledgers."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import (DSEQuery, Tracer, WallClock,
+                                  build_query_session, get_app,
+                                  register_app)
+    from repro_torch.core.cuda_oracle import CudaOracle
+    from repro_torch.core.obs import validate_chrome
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.serve import DSEService
+    # the card's own recordings: phase 4's tile 128 (which fits the
+    # share-PLM fallback) and the share-PLM phase's tile 64
+    register_app(dataclasses.replace(
+        get_app("wami"), name="wami-card",
+        measurement_path=lambda t: os.path.join(
+            rec_dir, f"wami_cuda_tile{t}.json")))
+    counters = {k["name"]: k["counter"] for k in table}
+    counters.update(flash_attention=flash_attention_kernel,
+                    ssd_scan=ssd_scan_kernel)
+    queries = [DSEQuery(app=a, backend=b, delta=d, share_plm=s, tiles=t,
+                        tenant=n) for n, a, b, d, s, t in SERVICE_TENANTS]
+    tracer = Tracer(WallClock())
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with _counting_timings() as timed:
+        with DSEService(max_pending=8, workers=3, tracer=tracer) as svc:
+            handles = {h.query.tenant: h
+                       for h in svc.submit_all(queries, timeout=600)}
+            results = {n: h.result(timeout=900) for n, h in handles.items()}
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counters.items()}
+            stats = svc.stats()
+            pools = dict(svc._pools)
+    by_slug = {p.slug: p for p in pools.values()}
+
+    # 1. each tenant's front and books equal an isolated session's
+    for n, h in handles.items():
+        q = h.query
+        tool = None
+        if q.backend != "analytical":
+            pool = pools[q.pool_key]
+            tool = _PoolReplay(pool.cache.entries(), pool.oracle.tool)
+        iso = build_query_session(q, tool=tool)
+        ref = iso.run()
+        _require(repr(ref.planned) == repr(results[n].planned)
+                 and repr(ref.mapped) == repr(results[n].mapped),
+                 f"service: {n}'s front differs from an isolated session's")
+        _require(dict(iso.ledger.invocations) == h.invocations(),
+                 f"service: {n}'s invocations {h.invocations()} differ from "
+                 f"an isolated session's {dict(iso.ledger.invocations)}")
+        _require(all(math.isfinite(m.theta_actual) and m.theta_actual > 0
+                     for m in ref.mapped), f"service: {n}'s front")
+    # 2. four pools, and the pools paid less than the tenants' sum
+    tenant_sum = sum(sum(h.invocations().values())
+                     for h in handles.values())
+    _require(len(pools) == 4, f"service: {sorted(by_slug)} pools, not 4")
+    _require(stats["shared_invocations"] < tenant_sum,
+             f"service: shared {stats['shared_invocations']} not below "
+             f"the tenants' {tenant_sum}")
+    # 3. no point timed twice: each of the three cuda pools (B, C, D)
+    # timed each kernel point once, pool D's fresh points are t4's and
+    # t5's distinct ones, and every kernel launched during the phase
+    timings = {}
+    for p in pools.values():
+        if not isinstance(p.oracle.tool, CudaOracle):
+            continue
+        n_timed, points = timed[id(p.oracle.tool)], _kernel_points(p.cache)
+        timings[p.slug] = {"timed": n_timed, "kernel_points": len(points)}
+        _require(n_timed == len(points) > 0,
+                 f"service: pool {p.slug} timed {n_timed} times for "
+                 f"{len(points)} kernel points")
+    _require(len(timings) == 3,
+             f"service: {sorted(timings)} pools time on the card, not 3")
+    d = pools[POOL_D]
+    asked = {n: {(r.component, r.unrolls, r.ports, r.max_states, r.tile)
+                 for r in handles[n].ledger.records} for n in ("t4", "t5")}
+    d_out = d.oracle.outcome_counts()
+    _require(d_out["fresh"] == len(asked["t4"] | asked["t5"]) == len(d.cache),
+             f"service: pool D's fresh {d_out['fresh']} is not the "
+             f"{len(asked['t4'] | asked['t5'])} distinct points t4 and t5 "
+             f"asked for")
+    tenant_of = _tenant_of(tracer)
+    t5 = collections.Counter(s.attrs["outcome"]
+                             for s in tracer.spans("shared.point")
+                             if tenant_of(s) == "t5")
+    dead = [n for n, c in launches.items() if c <= 0]
+    _require(not dead, f"service: kernels never launched: {dead}")
+    # 4. pool D's walls against phase 4's at the points both timed
+    ratios = [
+        (s.detail["wall_s"] / dse["walls"][k[0]][f"p{k[2]}:u{k[1]}"], k)
+        for k, s in d.cache.entries().items()
+        if "wall_s" in (s.detail or {})
+        and f"p{k[2]}:u{k[1]}" in dse["walls"].get(k[0], {})]
+    ratios.sort(key=lambda r: r[0])     # keys hold None: sort by ratio
+    _require(ratios, "service: pool D timed no point phase 4 timed")
+    worst, worst_key = ratios[-1]
+    _require(worst <= 1.5,
+             f"service: pool D's wall at {worst_key} is {worst:.3f}x "
+             f"phase 4's (limit 1.5)")
+    # 6. the trace: schema-valid, and its outcomes are the ledgers' sum
+    trace_path = os.path.join(HERE, "build", "service.trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    doc = tracer.export_chrome(time_unit_us=1e6)
+    with open(trace_path, "w") as f:
+        json.dump(doc, f)
+    errors = validate_chrome(doc)
+    _require(not errors, f"service: trace violates the schema: "
+                         f"{errors[:5]}")
+    ledger_sum = collections.Counter()
+    for h in handles.values():
+        ledger_sum.update(h.outcome_counts())
+    traced = tracer.outcome_counts()
+    _require(traced == {o: n for o, n in ledger_sum.items() if n},
+             f"service: trace outcomes {traced} != ledgers' {ledger_sum}")
+    span_counts = dict(sorted(collections.Counter(
+        s.name for s in tracer.spans()).items()))
+
+    queued = {s.attrs["qid"]: s.end - s.start
+              for s in tracer.spans("service.queued")}
+    tenants = {n: {"wall_s": h.wall_s, "queue_wait_s": queued[h.qid],
+                   "outcomes": h.outcome_counts(),
+                   "invocations": sum(h.invocations().values()),
+                   "pool": pools[h.query.pool_key].slug}
+               for n, h in handles.items()}
+    pool_rows = {p.slug: {"tenants": p.tenants,
+                          **p.oracle.outcome_counts(),
+                          **timings.get(p.slug, {})}
+                 for p in pools.values()}
+    print(f"[service] {len(handles)} tenants, {len(pools)} pools, "
+          f"{wall:.2f} s of host clock; shared invocations "
+          f"{stats['shared_invocations']} against the tenants' "
+          f"{tenant_sum}", flush=True)
+    for n, t in tenants.items():
+        o = t["outcomes"]
+        print(f"[service] tenant {n} ({t['pool']}): {t['wall_s']:.3f} s, "
+              f"queue wait {t['queue_wait_s']:.3f} s, invocations "
+              f"{t['invocations']}; fresh {o['fresh']}, cache_hit "
+              f"{o['cache_hit']}, inflight_join {o['inflight_join']}, "
+              f"replay {o['replay']}", flush=True)
+    for slug, r in pool_rows.items():
+        extra = (f"; kernel timings {r['timed']}" if "timed" in r else "")
+        print(f"[service] pool {slug}: tenants {r['tenants']}; fresh "
+              f"{r['fresh']}, cache_hit {r['cache_hit']}, inflight_join "
+              f"{r['inflight_join']}, replay {r['replay']}{extra}",
+              flush=True)
+    print(f"[service] pool D: fresh {d_out['fresh']} = the distinct points "
+          f"t4 and t5 asked for; t5 at the pool: cache_hit "
+          f"{t5['cache_hit']}, inflight_join {t5['inflight_join']}, fresh "
+          f"{t5['fresh']} (t5's points within t4's: "
+          f"{asked['t5'] <= asked['t4']}); walls against phase 4's at "
+          f"{len(ratios)} points: {ratios[0][0]:.3f}x..{worst:.3f}x "
+          f"(worst at {worst_key})", flush=True)
+    print(f"[service] launches in the phase: {launches}", flush=True)
+    print(f"[service] trace {os.path.relpath(trace_path, HERE)}: "
+          f"{len(doc['traceEvents'])} events, valid; outcomes {traced} "
+          f"= the tenants' ledgers; spans {span_counts}", flush=True)
+    print("[service] every tenant's front and invocations equal an "
+          "isolated session's", flush=True)
+    return {"wall_s": wall, "tenants": tenants, "pools": pool_rows,
+            "shared_invocations": stats["shared_invocations"],
+            "tenant_invocations": tenant_sum, "launches": launches,
+            "t5_at_pool": dict(t5),
+            "t5_within_t4": asked["t5"] <= asked["t4"],
+            "pool_d_wall_ratio": {"points": len(ratios), "min": ratios[0][0],
+                                  "max": worst},
+            "trace": {"events": len(doc["traceEvents"]),
+                      "outcomes": traced, "spans": span_counts}}
+
+
+def _cache_entries(root):
+    """Points in the newest complete step of a cache directory (0 while
+    there is none, or while the step read is pruned under the reader)."""
+    from repro_torch.checkpoint import store
+    step = store.latest_step(root)
+    if step is None:
+        return 0
+    try:
+        with open(os.path.join(root, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            return len(json.load(f)["extra"]["entries"])
+    except (OSError, ValueError, KeyError):
+        return 0
+
+
+def phase_kill_resume(dev):
+    """A measured WAMI drive in a child process, through a durable cache
+    flushed at every point, killed once ``KILL_AFTER_ENTRIES`` points are
+    flushed; then the same drive in a new process over the same cache.
+    The resumed run must time fewer points than the whole walk, replay
+    the killed run's, and give the front a replay of the final cache
+    gives."""
+    import signal
+
+    from repro_torch.checkpoint import store
+    from repro_torch.core import PersistentOracleCache, build_session
+    t0 = time.perf_counter()
+    work = os.path.join(HERE, "build", "kill_resume")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    root = os.path.join(work, "cache")
+    cmd = [sys.executable, os.path.abspath(__file__), "--kill-resume-child"]
+    with open(os.path.join(work, "killed.log"), "w") as log:
+        proc = subprocess.Popen(cmd + [root, os.path.join(work, "x.json")],
+                                stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 300
+            while proc.poll() is None and time.monotonic() < deadline:
+                if _cache_entries(root) >= KILL_AFTER_ENTRIES:
+                    proc.send_signal(signal.SIGKILL)
+                    break
+                time.sleep(0.005)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+    _require(proc.returncode == -signal.SIGKILL,
+             f"kill-resume: the first drive ended with {proc.returncode} "
+             f"before it was killed (log: {work}/killed.log)")
+    steps = store.list_steps(root)
+    killed_at = len(PersistentOracleCache(root))
+    for step in steps:              # no torn step: every one restores
+        store.restore(root, step, {"n_entries": 0})
+    # a step the kill interrupted mid-write, as a crash leaves one
+    torn = os.path.join(root, f"step_{steps[-1] + 1:08d}.tmp")
+    os.makedirs(torn, exist_ok=True)
+    with open(os.path.join(torn, "manifest.json"), "w") as f:
+        f.write('{"step": ')
+    out = os.path.join(work, "resumed.json")
+    with open(os.path.join(work, "resumed.log"), "w") as log:
+        rc = subprocess.run(cmd + [root, out], stdout=log,
+                            stderr=subprocess.STDOUT, timeout=600).returncode
+    _require(rc == 0, f"kill-resume: the resumed drive failed ({rc}; log: "
+                      f"{work}/resumed.log)")
+    with open(out) as f:
+        resumed = json.load(f)
+    final = PersistentOracleCache(root)
+    walk_points = len(_kernel_points(final))
+    with _counting_timings() as timed:
+        replay = build_session("wami", "cuda", device=dev,
+                               cache=PersistentOracleCache(root))
+        res = replay.run()
+    o = resumed["outcomes"]
+    elapsed = time.perf_counter() - t0
+    print(f"[kill-resume] {elapsed:.1f} s; killed after {killed_at} "
+          f"flushed points (steps "
+          f"{steps}); resumed: {resumed['timed']} kernel timings against "
+          f"the walk's {walk_points}, fresh {o['fresh']}, replay "
+          f"{o['replay']}, cache_hit {o['cache_hit']}, of "
+          f"{resumed['total']} invocations; replay of the final cache: "
+          f"fresh {replay.ledger.outcome_counts()['fresh']}, "
+          f"{sum(timed.values())} timings", flush=True)
+    _require(resumed["timed"] < walk_points and o["replay"] > 0
+             and o["fresh"] < resumed["total"],
+             f"kill-resume: the resumed drive re-paid the killed one's "
+             f"points: {resumed}")
+    _require(replay.ledger.outcome_counts()["fresh"] == 0
+             and not sum(timed.values()),
+             "kill-resume: the final cache does not hold the whole walk")
+    _require(repr(res.planned) == resumed["planned"]
+             and repr(res.mapped) == resumed["mapped"],
+             "kill-resume: the resumed front differs from a replay of the "
+             "final cache")
+    print("[kill-resume] the resumed front equals a replay of the final "
+          "cache; the leftover .tmp step was ignored", flush=True)
+    return {"wall_s": elapsed, "killed_at": killed_at, "steps": steps,
+            "timed": resumed["timed"], "walk_kernel_points": walk_points,
+            "outcomes": o, "invocations": resumed["total"]}
+
+
+def kill_resume_child(root, out, dev):
+    """The drive ``phase_kill_resume`` runs in its child processes: the
+    measured WAMI session through a cache at ``root`` flushed at every
+    point; what it timed, its outcomes and its front go to ``out``."""
+    from repro_torch.core import PersistentOracleCache, build_session
+    with _counting_timings() as timed:
+        session = build_session(
+            "wami", "cuda", device=dev,
+            cache=PersistentOracleCache(root, flush_every=1))
+        res = session.run()
+    with open(out, "w") as f:
+        json.dump({"timed": sum(timed.values()),
+                   "outcomes": session.ledger.outcome_counts(),
+                   "total": session.ledger.total(),
+                   "planned": repr(res.planned),
+                   "mapped": repr(res.mapped)}, f)
+
+
+def phase_pricing():
+    """Whole-grid pricing and the guided walk on the analytical drives:
+    WAMI's host time with and without ``batch_pricing`` (in turns:
+    plain, grid, grid, plain) at an equal front, and the guided drive's
+    invocations against the unguided one's for WAMI and for the fleet
+    on the H100 chip table, with byte-identical fronts."""
+    from repro_torch.core import build_session
+
+    def drive(app, **kw):
+        t0 = time.perf_counter()
+        s = build_session(app, **kw)
+        res = s.run()
+        return time.perf_counter() - t0, s, res
+
+    times = {"plain": [], "batch": []}
+    fronts = set()
+    for kind in ("plain", "batch", "batch", "plain"):
+        dt, _, res = drive("wami", batch_pricing=kind == "batch")
+        times[kind].append(dt)
+        fronts.add((repr(res.planned), repr(res.mapped)))
+    _require(len(fronts) == 1, "pricing: batch_pricing changed the front")
+    guided = {}
+    for app in ("wami", "fleet"):
+        _, plain_s, plain = drive(app)
+        _, guided_s, res = drive(app, guided=True)
+        _require((repr(res.planned), repr(res.mapped))
+                 == (repr(plain.planned), repr(plain.mapped)),
+                 f"pricing: the guided {app} front differs")
+        guided[app] = {"guided": guided_s.ledger.total(),
+                       "unguided": plain_s.ledger.total()}
+    print(f"[pricing] analytical WAMI drive, s of host clock: plain "
+          f"{', '.join(f'{t:.3f}' for t in times['plain'])}, batch_pricing "
+          f"{', '.join(f'{t:.3f}' for t in times['batch'])} (same front); "
+          f"guided against unguided invocations: WAMI "
+          f"{guided['wami']['guided']} vs {guided['wami']['unguided']}, "
+          f"fleet (H100 chip table) {guided['fleet']['guided']} vs "
+          f"{guided['fleet']['unguided']} (fronts byte-identical)",
+          flush=True)
+    return {"host_s": times, "invocations": guided}
 
 
 # Walls of the WAMI DSE's recording with an earlier kernel, read by that
@@ -1382,6 +1852,8 @@ def phase_fleet_times(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
+    ap.add_argument("--kill-resume-child", nargs=2, metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script; run "
@@ -1399,6 +1871,9 @@ def main(argv=None) -> int:
               "NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    if args.kill_resume_child:
+        kill_resume_child(*args.kill_resume_child, torch.device("cuda", 0))
+        return 0
     from repro_torch.kernels.build import build_all
 
     # float32 products in full float32, as the plain versions' reference
@@ -1428,6 +1903,9 @@ def main(argv=None) -> int:
         dse = phase_dse(dev, table, rec_dir)
         fleet_dse = phase_fleet_dse(dev)
         share_plm = phase_share_plm(dev, table, rec_dir, dse, fleet_dse)
+        service = phase_service(dev, table, rec_dir, dse)
+    kill_resume = phase_kill_resume(dev)
+    pricing = phase_pricing()
     times = phase_times(dev, inputs, table)
     fleet_times = phase_fleet_times(dev)
 
@@ -1439,6 +1917,7 @@ def main(argv=None) -> int:
             "replaces": k["replaces"],
             "launches": dse["launches"][k["name"]],
             "share_plm_launches": share_plm["wami"]["launches"][k["name"]],
+            "service_launches": service["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1460,6 +1939,7 @@ def main(argv=None) -> int:
             "replaces": k["replaces"],
             "launches": fleet_dse["launches"][k["name"]],
             "share_plm_launches": share_plm["fleet"]["launches"][k["name"]],
+            "service_launches": service["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -1482,7 +1962,8 @@ def main(argv=None) -> int:
             json.dump({"nvidia_smi": smi, "kernels": kernels,
                        "functional": functional, "dse": dse,
                        "fleet_dse": fleet_dse, "share_plm": share_plm,
-                       "times": times,
+                       "service": service, "kill_resume": kill_resume,
+                       "pricing": pricing, "times": times,
                        "fleet_times": fleet_times}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

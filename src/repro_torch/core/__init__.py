@@ -32,6 +32,11 @@ synthesis oracle:
     :mod:`repro_torch.core.analysis` re-proves emitted plans
   * :mod:`repro_torch.core.registry` — the App/Backend registry and
     ``build_session``, the one session constructor
+  * :mod:`repro_torch.core.pricing` / :mod:`repro_torch.core.surrogate`
+    — bit-exact whole-grid pricing of the analytical backends and
+    surrogate-guided characterization over it
+  * :mod:`repro_torch.core.obs` — span tracer, metrics registry, trace
+    schema
 """
 
 from .calibrate import (CalibratedTool, CalibrationFit, calibrate_to_records,
@@ -46,9 +51,11 @@ from .knobs import (CDFGFacts, KnobSpace, Region, Synthesis, SynthesisTool,
                     powers_of_two)
 from .mapping import MapOutcome, map_target, phi
 from .memgen import MemGen, PLM, PLMSpec
-from .obs import MetricsRegistry
-from .oracle import (InvocationRecord, InvocationRequest, Oracle,
-                     OracleBatchMixin, OracleLedger)
+from .obs import (Counter, Gauge, Histogram, LogicalClock, MetricsRegistry,
+                  NULL_TRACER, NullTracer, Span, Tracer, WallClock)
+from .oracle import (CountingTool, InvocationRecord, InvocationRequest,
+                     Oracle, OracleBatchMixin, OracleLedger,
+                     PersistentOracleCache, SharedOracle)
 from .pareto import (DesignPoint, check_delta_curve, dominates_max_min,
                      dominates_min_min, pareto_front_max_min,
                      pareto_front_min_min, span)
@@ -60,7 +67,10 @@ from .plm import (MemoryCompatGraph, MemoryGroup, MemoryPlan, PLMPlanner,
 from .registry import (App, Backend, build_query_session, build_session,
                        build_tool, get_app, get_backend, list_apps,
                        list_backends, register_app, register_backend)
+from .pricing import BatchPricer
 from .session import DSEQuery, ExplorationSession, ProgressEvent
+from .surrogate import (GuidedCharacterization, RidgeSurrogate,
+                        guided_characterize_component)
 from .tmg import TMG, Place, Transition, feedback_pipeline_tmg, pipeline_tmg
 
 __all__ = [
@@ -69,8 +79,9 @@ __all__ = [
     "check_delta_curve", "dominates_min_min", "dominates_max_min",
     "KnobSpace", "Region", "Synthesis", "CDFGFacts", "SynthesisTool",
     "powers_of_two",
-    "Oracle", "OracleBatchMixin", "OracleLedger", "InvocationRequest",
-    "InvocationRecord", "MetricsRegistry",
+    "Oracle", "OracleBatchMixin", "OracleLedger", "CountingTool",
+    "InvocationRequest", "InvocationRecord", "PersistentOracleCache",
+    "SharedOracle",
     "CudaOracle", "CudaKernelSpec", "MeasurementStore", "MeasurementSet",
     "MissingMeasurementError",
     "PLMRequirement", "MemoryGroup", "MemoryPlan", "MemoryCompatGraph",
@@ -89,4 +100,8 @@ __all__ = [
     "phi", "map_target", "MapOutcome",
     "cosmos_dse", "CosmosResult", "exhaustive_dse", "ExhaustiveResult",
     "compose_exhaustive", "SystemPoint",
+    "BatchPricer", "RidgeSurrogate", "GuidedCharacterization",
+    "guided_characterize_component",
+    "Tracer", "Span", "NullTracer", "NULL_TRACER", "WallClock",
+    "LogicalClock", "MetricsRegistry", "Counter", "Gauge", "Histogram",
 ]

@@ -90,6 +90,24 @@ def device_kind_of(device=None) -> str:
     return torch.cuda.get_device_name(resolve_device(device))
 
 
+# one measurement lock per device, shared by every CudaOracle of the
+# process: the oracles' timings all queue on the device's legacy default
+# stream, so two oracles timing at once (a service's pools, each with its
+# own dispatcher thread) would each read the other's kernels inside their
+# events
+_DEVICE_LOCKS: Dict[str, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(device) -> threading.Lock:
+    """The measurement lock of ``device`` (``None`` is the CUDA card)."""
+    key = str(torch.device("cuda" if device is None else device))
+    if key == "cuda":
+        key = f"cuda:{torch.cuda.current_device()}"
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(key, threading.Lock())
+
+
 # the longest spin device_time_s queues ahead of a reading (about a
 # second at the 1.98 GHz maximum SM clock of an H100 SXM, 700 W limit)
 _MAX_SPIN_CYCLES = 1 << 31
@@ -470,10 +488,13 @@ class CudaOracle(OracleBatchMixin):
         self._measured: Dict[Tuple[str, int, int, int], float] = {}
         self._lock = threading.Lock()
         # timing under a thread-pool fan-out measures contention, not the
-        # kernel: _measure_lock serializes every real measurement even
-        # when a ledger/session fans synthesize() out over its own pool;
-        # replay never executes and can fan out freely
-        self._measure_lock = threading.Lock()
+        # kernel: _measure_lock, the device's one lock, serializes every
+        # real measurement on the device, across every oracle of the
+        # process, even when a ledger/session fans synthesize() out over
+        # its own pool; replay never executes, takes no lock, and can
+        # fan out freely
+        self._measure_lock = (None if mode == "replay"
+                              else _device_lock(device))
         self.batch_workers = 8 if mode == "replay" else 1
 
     # ------------------------------------------------------------------

@@ -1,15 +1,62 @@
-"""Observability for the DSE engine: the metrics registry behind every
-counter, and the per-point outcome partition the oracle ledger counts.
+"""Unified observability for the DSE engine and service.
 
-Every evaluated point carries one outcome from the four-way partition
-``fresh | cache_hit | inflight_join | replay``
-(:meth:`~repro_torch.core.oracle.OracleLedger.outcome_counts`).
+Two small, dependency-free primitives — a span tracer and a metrics
+registry — threaded through the whole stack:
+
+  * :mod:`repro_torch.core.obs.trace` — ``Tracer.span(name, **attrs)``
+    context-manager spans with parent/child nesting, an injectable
+    clock (:class:`WallClock` live, :class:`LogicalClock` for
+    byte-stable exports), newline-JSON and Chrome ``trace_event``
+    exporters (Perfetto-openable);
+  * :mod:`repro_torch.core.obs.metrics` — :class:`MetricsRegistry` with
+    lock-consistent counters, gauges, and fixed-bucket latency
+    histograms behind one ``snapshot()`` pull interface;
+  * :mod:`repro_torch.core.obs.schema` — the trace-artifact schema
+    exports are validated against
+    (``python -m repro_torch.core.obs.schema``).
+
+Instrumented layers: :class:`~repro_torch.core.session.ExplorationSession`
+phases, the oracle stack (:class:`~repro_torch.core.oracle.OracleLedger` /
+:class:`~repro_torch.core.oracle.SharedOracle` — every evaluated point
+carries an ``outcome`` tag from the four-way partition
+``fresh | cache_hit | inflight_join | replay``),
+:meth:`~repro_torch.core.plm.planner.PLMPlanner.plan_point` (certificate
+tier chosen), whole-grid pricing
+(:class:`~repro_torch.core.pricing.BatchPricer`), and the
+:class:`~repro_torch.serve.dse_service.DSEService` query lifecycle
+(submit -> queued -> dispatched -> done).
 """
 
-from .metrics import Counter, Histogram, LATENCY_BUCKETS_S, MetricsRegistry
+from .metrics import (Counter, Gauge, Histogram, LATENCY_BUCKETS_S,
+                      MetricsRegistry)
+from .trace import (Clock, LogicalClock, NULL_TRACER, NullTracer, OUTCOMES,
+                    Span, Tracer, WallClock)
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "LATENCY_BUCKETS_S",
-           "OUTCOMES"]
+__all__ = [
+    "Clock",
+    "WallClock",
+    "LogicalClock",
+    "Span",
+    "Tracer",
+    "NullTracer",
+    "NULL_TRACER",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "LATENCY_BUCKETS_S",
+    "OUTCOMES",
+    "validate_chrome",
+    "validate_jsonl",
+]
 
-#: the per-point outcome partition of an oracle ledger
-OUTCOMES = ("fresh", "cache_hit", "inflight_join", "replay")
+# schema is also a `python -m` entry point: importing it eagerly here
+# would double-import it under runpy (same rule as core.analysis)
+_SCHEMA_LAZY = {"validate_chrome", "validate_jsonl"}
+
+
+def __getattr__(name):
+    if name in _SCHEMA_LAZY:
+        from . import schema
+        return getattr(schema, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,16 +1,23 @@
-"""The metrics registry: counters and fixed-bucket histograms.
+"""The metrics registry: counters, gauges, fixed-bucket histograms.
 
-Every instrument is internally locked, so incrementing from a worker
-thread and snapshotting from another is always consistent:
+The ledger's outcome counts, the caches' hits, the shared oracles'
+tallies and ``DSEService``'s queue stats all live behind one *pull*
+interface:
 
     reg = MetricsRegistry()
     reg.counter("oracle.points.fresh").inc()
-    reg.histogram("oracle.invoke_wall_s").observe(wall)
+    reg.histogram("service.latency_s").observe(wall)
     reg.snapshot()        # -> one deterministic JSON-able dict
+
+Every instrument is internally locked, so incrementing from a worker
+thread and snapshotting from the service thread is always consistent;
+classes that expose bare-int counter names keep them as properties over
+registry counters (lock-consistent by construction).
 
 Instruments are create-on-first-use and name-unique: asking for the
 same name with a different type (or different histogram buckets) is a
-programming error and raises.
+programming error and raises.  ``DSEService.stats()`` embeds the
+snapshot.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 __all__ = [
     "Counter",
+    "Gauge",
     "Histogram",
     "MetricsRegistry",
     "LATENCY_BUCKETS_S",
@@ -52,6 +60,34 @@ class Counter:
             return self._value
 
     def snapshot(self) -> int:
+        return self.value
+
+
+class Gauge:
+    """A point-in-time value (queue depth, running queries)."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def add(self, delta: float) -> float:
+        with self._lock:
+            self._value += delta
+            return self._value
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def snapshot(self) -> float:
         return self.value
 
 
@@ -135,6 +171,9 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter, lambda: Counter(name))
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge, lambda: Gauge(name))
+
     def histogram(self, name: str,
                   buckets: Sequence[float] = LATENCY_BUCKETS_S
                   ) -> Histogram:
@@ -149,7 +188,8 @@ class MetricsRegistry:
             return tuple(sorted(self._instruments))
 
     def snapshot(self) -> Dict[str, Any]:
-        """Every instrument's current value, sorted by name."""
+        """Every instrument's current value, sorted by name — the pull
+        interface ``DSEService.stats()`` (and the benches) read."""
         with self._lock:
             items = sorted(self._instruments.items())
         return {name: inst.snapshot() for name, inst in items}

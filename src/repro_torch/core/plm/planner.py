@@ -172,7 +172,7 @@ class PLMPlanner:
 
     # ------------------------------------------------------------------
     def plan_point(self, tool, syntheses: Dict[str, Synthesis],
-                   schedule=None) -> MemoryPlan:
+                   schedule=None, tracer=None) -> MemoryPlan:
         """requirements + plan in one call (what the session's map phase
         invokes per design point).
 
@@ -185,13 +185,32 @@ class PLMPlanner:
         front is *pointwise* no worse than the structural-only front —
         the same dominance argument the benefit guard makes against the
         private sum.
+
+        ``tracer`` records a ``plm.plan_point`` span tagged with which
+        plan won (``plan="structural"|"two_tier"``), the certificate tier
+        in play, and the chosen plan's cost/compat tag.
         """
-        reqs = self.requirements(tool, syntheses)
-        base = self.plan(reqs)
-        if schedule is None:
+        from ..obs import NULL_TRACER
+        tr = tracer if tracer is not None else NULL_TRACER
+        with tr.span("plm.plan_point", components=len(syntheses)) as sp:
+            reqs = self.requirements(tool, syntheses)
+            base = self.plan(reqs)
+            if schedule is None:
+                sp.set("tier", "structural")
+                sp.set("plan", "structural")
+                sp.set("cost", base.system_cost)
+                sp.set("tag", getattr(base, "compat_tag", None))
+                return base
+            from ..analysis.intervals import compat_source_for
+            sched_plan = self.plan(reqs,
+                                   compat_source_for(self.tmg, schedule))
+            sp.set("tier", "two_tier")
+            if sched_plan.system_cost < base.system_cost:
+                sp.set("plan", "two_tier")
+                sp.set("cost", sched_plan.system_cost)
+                sp.set("tag", getattr(sched_plan, "compat_tag", None))
+                return sched_plan
+            sp.set("plan", "structural")
+            sp.set("cost", base.system_cost)
+            sp.set("tag", getattr(base, "compat_tag", None))
             return base
-        from ..analysis.intervals import compat_source_for
-        sched_plan = self.plan(reqs, compat_source_for(self.tmg, schedule))
-        if sched_plan.system_cost < base.system_cost:
-            return sched_plan
-        return base

@@ -400,15 +400,18 @@ def build_session(app: App | str, backend: Backend | str = "analytical",
     :mod:`repro_torch.core.analysis.verify` before the session accepts
     it (only meaningful together with ``share_plm``).
 
-    ``batch_pricing`` and ``guided`` (whole-grid pricing and
-    surrogate-guided characterization) are not in this package yet and
-    raise.  Remaining keywords flow to :class:`ExplorationSession`.
+    ``batch_pricing=True`` wraps an analytical tool in a
+    :class:`~repro_torch.core.pricing.BatchPricer` so every oracle
+    request is a whole-grid lookup (bit-exact; non-analytical tools pass
+    through unchanged).  ``guided=True`` additionally runs
+    surrogate-guided characterization (:mod:`repro_torch.core.surrogate`):
+    the Algorithm-1 walk prices from the grid and only the surrogate's
+    top corner per component is confirmed through the real oracle —
+    analytical backends only; raises ``ValueError`` for backends without
+    a grid program (the measured ``cuda`` backend among them).
+    Remaining keywords flow to :class:`ExplorationSession`.
     """
-    if batch_pricing or guided:
-        raise NotImplementedError(
-            "batch_pricing and guided characterization need the pricing "
-            "and surrogate modules, which this package does not have yet "
-            "(ROADMAP Queue 1 item 3)")
+    from .pricing import BatchPricer     # lazy: pricing imports backends
     app = get_app(app) if isinstance(app, str) else app
     backend = get_backend(backend) if isinstance(backend, str) else backend
     tool_opts = {k: kwargs.pop(k) for k in _TOOL_OPTIONS if k in kwargs}
@@ -421,6 +424,20 @@ def build_session(app: App | str, backend: Backend | str = "analytical",
         raise ValueError(f"{sorted(tool_opts)} configure the backend's "
                          f"tool; they cannot apply to a pre-built tool "
                          f"or ledger")
+    if guided:
+        target = tool if tool is not None else kwargs["ledger"].tool
+        pricer = BatchPricer.wrap(target)
+        if not isinstance(pricer, BatchPricer):
+            raise ValueError(
+                f"guided characterization needs an analytical pricing "
+                f"grid; backend {backend.name!r} tool "
+                f"{type(target).__name__} has none (batch_pricing/guided "
+                f"support HLSTool and XLATool)")
+        kwargs.setdefault("pricer", pricer)
+        if tool is not None:
+            tool = pricer               # share one grid set end to end
+    elif batch_pricing and tool is not None:
+        tool = BatchPricer.wrap(tool)
     if share_plm:
         if app.plm_planner is not None:
             kwargs.setdefault("memory_planner", app.plm_planner())
@@ -439,10 +456,11 @@ def build_session(app: App | str, backend: Backend | str = "analytical",
 def build_query_session(query: DSEQuery, *, workers: Optional[int] = None,
                         **kwargs: Any) -> ExplorationSession:
     """Resolve a :class:`~repro_torch.core.session.DSEQuery` into a
-    session.
+    session — the service's per-tenant resolution point.
 
     Unknown app/backend names raise the registry's listing errors
-    *synchronously*.  ``workers`` overrides the query's own fan-out;
+    *synchronously* (the service validates at submit time, before a
+    query ever occupies a queue slot).  ``workers`` overrides the query's own fan-out;
     remaining keywords (``tool``, ``ledger``, ``verify_plans``, the
     measured backend's options, ...) flow to :func:`build_session`.
     """

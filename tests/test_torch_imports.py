@@ -39,4 +39,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.core.registry" in got["modules"]
     assert "repro_torch.core.plm.planner" in got["modules"]
     assert "repro_torch.core.analysis.verify" in got["modules"]
+    # the service path: pricing, the surrogate, tracing, the store and
+    # the service itself
+    for name in ("core.pricing", "core.surrogate", "core.obs.trace",
+                 "core.obs.schema", "checkpoint.store", "serve.dse_service"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"

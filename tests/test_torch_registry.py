@@ -227,8 +227,17 @@ def test_query_session_resolves_like_build_session():
 
 @pytest.mark.parametrize("flag", ["batch_pricing", "guided"])
 def test_pricing_and_surrogate_are_refused_not_ignored(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        build_session("wami", "analytical", **{flag: True})
+    """Either flag takes effect on the analytical backend (the tool is
+    priced through a grid), and guided characterization is refused on
+    the measured backend, which has no grid program."""
+    from repro_torch.core import BatchPricer
+    s = build_session("wami", "analytical", **{flag: True})
+    assert isinstance(s.ledger.tool, BatchPricer)
+    assert (s.pricer is not None) == (flag == "guided")
+    if flag == "guided":
+        with pytest.raises(ValueError, match="analytical pricing grid"):
+            build_session("wami", "cuda", guided=True, device="cpu",
+                          device_kind="interpret", smem_budget=16 * 2**20)
 
 
 def test_cuda_backend_needs_the_card_unless_told_otherwise():
