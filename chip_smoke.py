@@ -21,8 +21,9 @@ which fails the run on any error:
      on 30x66 (W % 4 != 0), and on 32x72 or 64x72 frames (tiles off the
      16-byte grid: the scalar head and tail of the runs of 4), warp also
      at the DSE's affine parameters (which clamp at the border; on the
-     odd frames too), and every stage of ``wami_cuda_parity_cases`` at
-     tiles 64 and 128;
+     odd frames too), and every parity case a registered app declares
+     (``App.parity_cases``, the list the lint checks: WAMI's seven
+     stages at tiles 64 and 128, the fleet's two kernels), at (1, 8);
      then, with TF32 products off, flash attention at every knob point
      of the fleet DSE in f32 (3xTF32 mma.sync) and bf16 (wgmma, TMA), at
      tests/test_kernels.py's shapes in both, its window and soft-cap
@@ -76,7 +77,25 @@ which fails the run on any error:
      session's over its pool's prices, pool D must time no point twice
      and at most 1.5x phase 4's wall at any point both timed, every
      kernel must launch, and the Chrome trace (``build/``) must pass the
-     schema with outcomes equal to the tenants' ledgers.  A measured
+     schema with outcomes equal to the tenants' ledgers.  Then the SoC
+     layer (``[soc]``), its counts zeroed just before its fronts are
+     resolved and read just after: each registered app alone, its front
+     resolved by ``SoCComposer`` on the ``cuda`` backend (every kernel
+     timed live), then ``wami=0.6,fleet=0.4`` over this run's card
+     fronts (WAMI's share-PLM one), each priced through the app's unit
+     system fitted from this run's recording and composed under
+     ``sys_medium`` (an infeasible budget is printed with its field)
+     and under budgets at 4x the minimal configuration at 45 and 16
+     nm, greedy and exhaustive (greedy never above the optimum); every
+     composition re-proved against its fronts, recomposed identically
+     by a fresh composer, round-tripped and written to ``build/soc/``,
+     which the verify CLI and SOC001 pass; the analytical compose CLI
+     in a subprocess equals the in-process composition; the trace holds
+     one ``soc.compose`` span per call.  Then the lint (``[lint]``):
+     its shared-memory constant is the card's, the registry gives
+     exactly one REG003 per declared card recording (none is
+     committed), this run's recordings pass with REG003 only for tile
+     256, and the CLI exits 1 with those four findings.  A measured
      WAMI drive through a durable cache is then killed after 40 flushed
      points and resumed in a new process (``[kill-resume]``: fewer
      timings, replays, the final cache's front), and the analytical
@@ -354,11 +373,26 @@ def _parity_cases(k):
             yield H, W, names, knobs
 
 
+# tolerance of a registered app's parity case, max|d| / max(1, max|ref|)
+PARITY_CASE_TOL = {"wami_hessian": 1e-4, "flash_attention": 2e-5,
+                   "ssd_scan": 1e-4}
+
+
+def _parity_tiles(app):
+    """The tiles an app's drives run its kernels at (the native tile and
+    the share-PLM tile axis); None for an app whose kernels have no tile
+    (its parity cases take their default size)."""
+    return sorted({app.native_tile, *app.plm_tile_sizes_measured}
+                  - {0}) or [None]
+
+
 def phase_parity(dev, inputs, table):
-    """Every kernel against its plain version on the card; returns the
-    largest absolute error per kernel."""
+    """Every kernel against its plain version on the card, then the
+    parity cases every registered app declares (``App.parity_cases``,
+    the list the lint checks); returns the largest absolute error per
+    kernel."""
     import torch
-    from repro_torch.apps.wami.cuda import wami_cuda_parity_cases
+    from repro_torch.core import list_apps
     errs = {}
     for k in table:
         worst, points = 0.0, 0
@@ -388,14 +422,19 @@ def phase_parity(dev, inputs, table):
         print(f"[parity] {k['name']}: max|d| {worst:.3g} over "
               f"{points} (shape, knob) points, tol {k['tol']:g} relative",
               flush=True)
-    for tile in WAMI_TILES:
-        for name, op, ref, args in wami_cuda_parity_cases(tile, dev):
-            got, want = op(*args), ref(*args)
-            torch.cuda.synchronize(dev)
-            d = _check_outputs(f"{name} (parity case, tile {tile})", got,
-                               want, 1e-4 if name == "wami_hessian" else 1e-5)
-            print(f"[parity] wami_cuda_parity_cases {name} at tile {tile}: "
-                  f"max|d| {d:.3g}", flush=True)
+    for app in list_apps():
+        for tile in _parity_tiles(app):
+            cases = (app.parity_cases(device=dev) if tile is None
+                     else app.parity_cases(tile, device=dev))
+            for name, op, ref, args in cases:
+                got, want = op(*args, ports=1, unrolls=8), ref(*args)
+                torch.cuda.synchronize(dev)
+                d = _check_outputs(
+                    f"{name} ({app.name} parity case, tile {tile})", got,
+                    want, PARITY_CASE_TOL.get(name, 1e-5))
+                print(f"[parity] {app.name} parity case {name} at tile "
+                      f"{tile or 'default'}: max|d| {d:.3g} at (1, 8)",
+                      flush=True)
     return errs
 
 
@@ -659,10 +698,11 @@ def phase_share_plm(dev, table, rec_dir, dse, fleet_dse):
     fleet = dataclasses.replace(
         get_app("fleet"), measurement_path=lambda t=0: os.path.join(
             rec_dir, "fleet_share_plm_cuda.json"))
-    _, _, out_fleet = _share_plm_drive(
+    _, fleet_res, out_fleet = _share_plm_drive(
         "fleet", fleet, dev, {"flash_attention": flash_attention_kernel,
                               "ssd_scan": ssd_scan_kernel}, fleet_dse)
-    return {"wami": out_wami, "fleet": out_fleet}
+    return ({"wami": out_wami, "fleet": out_fleet},
+            {"wami": res.pareto(), "fleet": fleet_res.pareto()})
 
 
 # ----------------------------------------------------------------------
@@ -761,7 +801,7 @@ def phase_service(dev, table, rec_dir, dse):
 
     import torch
     from repro_torch.core import (DSEQuery, Tracer, WallClock,
-                                  build_query_session, get_app,
+                                  build_query_session, get_app, registry,
                                   register_app)
     from repro_torch.core.cuda_oracle import CudaOracle
     from repro_torch.core.obs import validate_chrome
@@ -918,6 +958,9 @@ def phase_service(dev, table, rec_dir, dse):
           f"= the tenants' ledgers; spans {span_counts}", flush=True)
     print("[service] every tenant's front and invocations equal an "
           "isolated session's", flush=True)
+    # the app over this run's recordings served this phase only: the
+    # later phases walk the registry as the package fills it
+    registry._APPS.pop("wami-card")
     return {"wall_s": wall, "tenants": tenants, "pools": pool_rows,
             "shared_invocations": stats["shared_invocations"],
             "tenant_invocations": tenant_sum, "launches": launches,
@@ -1086,6 +1129,403 @@ def phase_pricing():
           f"{guided['fleet']['unguided']} (fronts byte-identical)",
           flush=True)
     return {"host_s": times, "invocations": guided}
+
+
+# ----------------------------------------------------------------------
+# the SoC composition layer and the lint on the card
+# ----------------------------------------------------------------------
+# each envelope of the card budgets is this multiple of the minimal
+# configuration's charge (every app at its cheapest point, one replica),
+# composed at these tech nodes
+SOC_BUDGET_MULTIPLE = 4.0
+SOC_TECH_NODES = (45, 16)
+SOC_MIX = "wami=0.6,fleet=0.4"
+# the lint's findings on the registry while no card recording is
+# committed: one REG003 per declared recording, (rule, app, subject)
+LINT_UNRECORDED = [("REG003", "fleet", "tile=0"),
+                   ("REG003", "wami", "tile=128"),
+                   ("REG003", "wami", "tile=256"),
+                   ("REG003", "wami", "tile=64")]
+
+
+def _soc_json(comp):
+    return json.dumps(comp.to_json(), sort_keys=True)
+
+
+def _card_rates(rec_dir):
+    """Each app's ``area_scale`` over fronts timed on the card: the
+    default demand's rate (reference-node mm^2 per native unit of the
+    analytical front) over the unit system's shared-memory bytes per
+    native unit, fitted from this run's native recording (WAMI: phase 4's
+    tile 128; the fleet: the share-PLM phase's)."""
+    from repro_torch.apps.fleet import fleet_unit_system
+    from repro_torch.apps.wami import wami_cuda_unit_system
+    from repro_torch.core import MeasurementStore
+    from repro_torch.core.soc import DEFAULT_DEMANDS
+    units = {
+        "wami": wami_cuda_unit_system(store=MeasurementStore.load(
+            os.path.join(rec_dir, f"wami_cuda_tile{TILE}.json"))),
+        "fleet": fleet_unit_system(store=MeasurementStore.load(
+            os.path.join(rec_dir, "fleet_share_plm_cuda.json"))),
+    }
+    return {app: DEFAULT_DEMANDS[app]["area_scale"] / u.area_scale
+            for app, u in units.items()}, units
+
+
+def _card_budget(mix, fronts):
+    """A custom budget at the reference node, as the compose CLI's
+    ``--area/--power/--bw`` build one: each envelope
+    ``SOC_BUDGET_MULTIPLE`` times the minimal configuration's charge."""
+    from repro_torch.core.soc import SoCBudget
+    from repro_torch.core.soc.compose import operating_points
+    probe = SoCBudget("probe", area_mm2=1.0, power_w=1.0, bw_gbps=1.0)
+    need = [0.0, 0.0, 0.0]
+    for d in mix.demands:
+        p = min(operating_points(fronts[d.app], d, probe),
+                key=lambda p: (p.area_mm2, p.index))
+        for i, charge in enumerate((p.area_mm2, p.power_w, p.bw_gbps)):
+            need[i] += charge
+    m = SOC_BUDGET_MULTIPLE
+    return SoCBudget(f"card-{m:g}x-{mix.name}", area_mm2=m * need[0],
+                     power_w=m * need[1], bw_gbps=m * need[2])
+
+
+def _exhaustive_configs(budget, mix, fronts):
+    """The configurations ``optimal_composition`` enumerates: per app,
+    every (point, replicas) within the budget's caps, crossed over the
+    apps (its own count, re-derived to be printed)."""
+    from repro_torch.core.soc.compose import operating_points
+    total = 1
+    for d in mix.demands:
+        n = 0
+        for p in operating_points(fronts[d.app], d, budget):
+            caps = [budget.area_mm2 / p.area_mm2,
+                    budget.power_w / p.power_w if p.power_w > 0
+                    else math.inf,
+                    budget.bw_gbps / p.bw_gbps if p.bw_gbps > 0
+                    else math.inf]
+            n += int(min(caps) * (1 + 1e-12))
+        total *= max(1, n)
+    return total
+
+
+class _SocRun:
+    """The compositions of the ``[soc]`` phase: each is re-proved against
+    its fronts, composed again by a fresh composer, round-tripped through
+    JSON and written under ``out_dir``; ``calls``/``composed`` count the
+    traced composers' ``compose()`` calls and their compositions."""
+
+    def __init__(self, out_dir, tracer, metrics):
+        self.out_dir, self.tracer, self.metrics = out_dir, tracer, metrics
+        self.calls = self.composed = 0
+        self.rows = []
+
+    def compose(self, composer, method="greedy", *, tag):
+        from repro_torch.core.soc import (BudgetInfeasibleError,
+                                          SoCComposer, verify_composition)
+        from repro_torch.core.soc.compose import Composition
+        self.calls += 1
+        t0 = time.perf_counter()
+        try:
+            comp = composer.compose(method)
+        except BudgetInfeasibleError as e:
+            if method != "greedy" or not tag.endswith("sys_medium"):
+                raise
+            row = {"tag": tag, "infeasible": e.budget_field,
+                   "need": e.need, "limit": e.limit}
+            print(f"[soc] {tag}: BudgetInfeasibleError on {e.budget_field} "
+                  f"(the minimal configuration needs {e.need:.6g}, the "
+                  f"preset allows {e.limit:.6g})", flush=True)
+            self.rows.append(row)
+            return None
+        host_s = time.perf_counter() - t0
+        self.composed += 1
+        fronts = composer.fronts()
+        violations = verify_composition(comp, fronts=fronts)
+        _require(not violations, f"soc: {tag} {method}: {violations}")
+        fresh = SoCComposer(comp.budget, comp.mix, fronts=fronts)
+        _require(_soc_json(fresh.compose(method)) == _soc_json(comp),
+                 f"soc: {tag} {method}: a fresh composer over the same "
+                 f"fronts composed another chip")
+        _require(_soc_json(Composition.from_json(comp.to_json()))
+                 == _soc_json(comp),
+                 f"soc: {tag} {method}: the JSON does not round-trip")
+        path = os.path.join(self.out_dir,
+                            f"{tag}-{method}.composition.json")
+        with open(path, "w") as f:
+            json.dump(comp.to_json(), f, indent=1, sort_keys=True)
+            f.write("\n")
+        b = comp.budget
+        row = {"tag": tag, "method": method, "tech_nm": b.tech_nm,
+               "sustained_throughput": comp.sustained_throughput,
+               "throughput_per_area": comp.throughput_per_area,
+               "totals": [comp.area_mm2, comp.power_w, comp.bw_gbps],
+               "envelopes": [b.area_mm2, b.power_w, b.bw_gbps],
+               "allocations": [[a.app, a.point.index, a.replicas,
+                                a.point.theta] for a in comp.allocations],
+               "host_s": host_s}
+        self.rows.append(row)
+        print(f"[soc] {tag} {method} at {b.tech_nm} nm: sustained "
+              f"{comp.sustained_throughput:.6g} req/s; "
+              + ", ".join(f"{a.app} point {a.point.index} x {a.replicas} "
+                          f"(theta {a.point.theta:.6g})"
+                          for a in comp.allocations)
+              + f"; area {comp.area_mm2:.6g}/{b.area_mm2:.6g} mm2, power "
+              f"{comp.power_w:.6g}/{b.power_w:.6g} W, bw "
+              f"{comp.bw_gbps:.6g}/{b.bw_gbps:.6g} GB/s; {host_s:.3f} s",
+              flush=True)
+        return comp
+
+    def at_card_budgets(self, mix, fronts, tag):
+        """Greedy and exhaustive at each of ``SOC_TECH_NODES`` under the
+        card budget of ``mix``; greedy never beats the certified
+        optimum."""
+        from repro_torch.core.soc import SoCComposer
+        from repro_torch.core.soc.compose import _MAX_CONFIGS
+        base = _card_budget(mix, fronts)
+        out = {}
+        for tech in SOC_TECH_NODES:
+            budget = base.at_tech(tech)
+            configs = _exhaustive_configs(budget, mix, fronts)
+            _require(configs <= _MAX_CONFIGS,
+                     f"soc: {tag} at {tech} nm: {configs} configurations")
+            comps = {m: self.compose(SoCComposer(
+                budget, mix, fronts=fronts, tracer=self.tracer,
+                metrics=self.metrics), m, tag=f"{tag}-{tech}nm")
+                for m in ("greedy", "exhaustive")}
+            g = comps["greedy"].sustained_throughput
+            o = comps["exhaustive"].sustained_throughput
+            _require(g <= o * (1 + 1e-12),
+                     f"soc: {tag} at {tech} nm: greedy {g} above the "
+                     f"exhaustive optimum {o}")
+            gap = (o - g) / o
+            out[tech] = {"configs": configs, "greedy": g, "exhaustive": o,
+                         "gap": gap}
+            print(f"[soc] {tag} at {tech} nm: the exhaustive packer "
+                  f"enumerated {configs} configurations (guard "
+                  f"{_MAX_CONFIGS}); greedy {g:.6g} against the optimum "
+                  f"{o:.6g}: gap {gap:.4%}", flush=True)
+        return out
+
+
+def phase_soc(dev, table, rec_dir, plm_fronts):
+    """The SoC composition layer on the card.  S1: each registered app
+    alone, its front resolved by the composer on the ``cuda`` backend
+    (``build_session(app, "cuda")`` in measure mode: every kernel of the
+    app timed live, launches counted); S2: ``SOC_MIX`` over this run's
+    card fronts (WAMI's share-PLM front of tiles 64 + 128, the fleet's
+    S1 front); each priced through the app's unit system fitted from
+    this run's recording, under ``sys_medium`` and under card budgets
+    (``SOC_BUDGET_MULTIPLE`` x the minimal configuration) at
+    ``SOC_TECH_NODES``, greedy and exhaustive.  S3: the analytical
+    compose CLI in a subprocess equals the in-process composition.
+    Every composition is re-proved, recomposed by a fresh composer and
+    round-tripped; the verify CLI and SOC001 pass over what was
+    written; the trace holds a ``soc.compose`` span per call."""
+    import torch
+    from repro_torch.core import (LogicalClock, MetricsRegistry, Tracer,
+                                  list_apps)
+    from repro_torch.core.analysis.lint import _lint_soc_artifacts
+    from repro_torch.core.soc import SoCComposer, TrafficMix, get_budget
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "soc")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rates, units = _card_rates(rec_dir)
+    print("[soc] area rates over card fronts, reference-node mm^2 per "
+          "shared-memory byte: "
+          + ", ".join(f"{a} {r:.6g} (fitted {units[a].area_scale:.6g} B "
+                      f"per native unit from {units[a].area_points} "
+                      f"points)" for a, r in rates.items()), flush=True)
+    tracer, metrics = Tracer(LogicalClock()), MetricsRegistry()
+    run = _SocRun(out_dir, tracer, metrics)
+    counters = {k["name"]: k["counter"] for k in table}
+    counters.update(flash_attention=flash_attention_kernel,
+                    ssd_scan=ssd_scan_kernel)
+
+    # S1: each app alone; the first compose() resolves its front on the
+    # card, under the sys_medium preset
+    solo = {}
+    s1_fronts = {}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    for app in list_apps():
+        mix = TrafficMix.parse(
+            f"{app.name}=1.0", name=f"{app.name}_solo_card",
+            **{app.name: {"backend": "cuda", "share_plm": False,
+                          "area_scale": rates[app.name]}})
+        composer = SoCComposer(get_budget("sys_medium"), mix,
+                               tracer=tracer, metrics=metrics)
+        run.compose(composer, tag=f"{mix.name}-sys_medium")
+        s1_fronts[app.name] = composer.fronts()[app.name]
+        solo[app.name] = mix
+    torch.cuda.synchronize(dev)
+    s1_wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[soc] S1: fronts resolved on the cuda backend in {s1_wall:.2f} "
+          f"s of host clock: "
+          + ", ".join(f"{a} {len(f)} points" for a, f in s1_fronts.items())
+          + f"; launches {launches}", flush=True)
+    dead = [n for n, c in launches.items() if c <= 0]
+    _require(not dead, f"soc: kernels never launched resolving the "
+                       f"fronts: {dead}")
+    gaps = {}
+    for app, mix in solo.items():
+        gaps[mix.name] = run.at_card_budgets(
+            mix, {app: s1_fronts[app]}, mix.name)
+
+    # S2: the default mix over this run's card fronts
+    mix = TrafficMix.parse(
+        SOC_MIX, name="wami60_fleet40_card",
+        wami={"backend": "cuda", "area_scale": rates["wami"]},
+        fleet={"backend": "cuda", "area_scale": rates["fleet"]})
+    fronts = {"wami": plm_fronts["wami"], "fleet": s1_fronts["fleet"]}
+    _require(mix.demand("wami").share_plm, "soc: the mix's WAMI demand "
+                                           "is not the share-PLM one")
+    run.compose(SoCComposer(get_budget("sys_medium"), mix, fronts=fronts,
+                            tracer=tracer, metrics=metrics),
+                tag=f"{mix.name}-sys_medium")
+    gaps[mix.name] = run.at_card_budgets(mix, fronts, mix.name)
+
+    # S3: the analytical CLI on the card's host
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    cli_out = os.path.join(out_dir, "analytical.composition.json")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.soc.compose", "--mix",
+         SOC_MIX, "--verify", "--out", cli_out], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    _require(cli.returncode == 0, f"soc: the compose CLI exited "
+                                  f"{cli.returncode}: {cli.stderr[-2000:]}")
+    analytical = SoCComposer(get_budget("sys_medium"),
+                             TrafficMix.parse(SOC_MIX)).compose()
+    with open(cli_out) as f:
+        _require(json.dumps(json.load(f), sort_keys=True)
+                 == json.dumps(json.loads(_soc_json(analytical)),
+                               sort_keys=True),
+                 "soc: the compose CLI's composition differs from the "
+                 "in-process one")
+    print(f"[soc] S3: python -m repro_torch.core.soc.compose --mix {SOC_MIX} "
+          f"--verify: exit 0 in {cli_s:.1f} s, its JSON equals the "
+          f"in-process analytical composition (sustained "
+          f"{analytical.sustained_throughput:.6g} req/s, area "
+          f"{analytical.area_mm2:.6g} mm2)", flush=True)
+
+    # what was written re-proves from the files alone
+    t0 = time.perf_counter()
+    ver = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.soc.verify", out_dir],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    _require(ver.returncode == 0, f"soc: the verify CLI exited "
+                                  f"{ver.returncode}: {ver.stdout[-2000:]}")
+    n_files = len([n for n in os.listdir(out_dir)
+                   if n.endswith(".composition.json")])
+    findings = []
+    _lint_soc_artifacts(findings, root=out_dir)
+    _require(not findings, f"soc: SOC001 over {out_dir}: "
+                           f"{[str(f) for f in findings]}")
+    print(f"[soc] python -m repro_torch.core.soc.verify build/soc: exit 0 "
+          f"over {n_files} compositions in {time.perf_counter() - t0:.1f} "
+          f"s; SOC001 finds nothing", flush=True)
+
+    # the trace: a soc.compose span per call, fronts and allocations
+    # inside them, and the counters
+    spans = tracer.spans()
+    by_id = {s.span_id: s for s in spans}
+    names = collections.Counter(s.name for s in spans)
+    _require(names["soc.compose"] == run.calls,
+             f"soc: {names['soc.compose']} soc.compose spans for "
+             f"{run.calls} calls")
+    _require(names["soc.front"] == len(s1_fronts),
+             f"soc: {names['soc.front']} soc.front spans")
+    _require(all(by_id[s.parent_id].name == "soc.compose"
+                 for s in spans if s.name in ("soc.front", "soc.allocate")),
+             "soc: a soc.front/soc.allocate span outside soc.compose")
+    _require(names["soc.allocate"] >= 1,
+             "soc: no greedy allocation was traced")
+    _require(metrics.counter("soc.compositions").value == run.composed,
+             f"soc: soc.compositions {metrics.counter('soc.compositions')}"
+             f".value != {run.composed}")
+    wall = time.perf_counter() - t_phase
+    print(f"[soc] trace: {dict(sorted(names.items()))}; soc.compositions "
+          f"{run.composed} of {run.calls} compose() calls; soc.moves "
+          f"{metrics.counter('soc.moves').value}; phase {wall:.1f} s",
+          flush=True)
+    return {"launches": launches, "s1_wall_s": s1_wall,
+            "rates": rates, "fronts": {a: [[p.perf, p.cost] for p in f]
+                                       for a, f in s1_fronts.items()},
+            "compositions": run.rows, "gaps": gaps,
+            "analytical": json.loads(_soc_json(analytical)),
+            "cli_s": cli_s, "spans": dict(names), "wall_s": wall}
+
+
+def phase_lint(dev, rec_dir):
+    """The static lint on the card's host: its shared-memory budget is
+    the card's, the registry gives exactly the four unrecorded tiles,
+    this run's recordings pass the schema (REG004) with no SPEC003, and
+    the CLI exits 1 printing those four findings."""
+    import dataclasses
+
+    from repro_torch.core import get_app
+    from repro_torch.core.analysis.lint import lint_all, lint_app
+    from repro_torch.core.cuda_oracle import (H100_SMEM_OPTIN_BYTES,
+                                              device_smem_budget)
+    t0 = time.perf_counter()
+    card = device_smem_budget(dev)
+    _require(H100_SMEM_OPTIN_BYTES == card,
+             f"lint: H100_SMEM_OPTIN_BYTES {H100_SMEM_OPTIN_BYTES} != the "
+             f"card's {card}")
+    findings = lint_all()
+    keys = [(f.rule, f.app, f.subject) for f in findings]
+    _require(keys == LINT_UNRECORDED, f"lint: {keys}")
+    on_run = {
+        "wami": dataclasses.replace(
+            get_app("wami"), measurement_path=lambda t: os.path.join(
+                rec_dir, f"wami_cuda_tile{t}.json")),
+        "fleet": dataclasses.replace(
+            get_app("fleet"), measurement_path=lambda t=0: os.path.join(
+                rec_dir, "fleet_share_plm_cuda.json")),
+    }
+    run_findings = {}
+    for name, app in on_run.items():
+        unrecorded = [f"tile={t}" for t in app.recorded_tiles
+                      if not os.path.exists(app.measurement_path(t))]
+        got = lint_app(app)
+        run_findings[name] = [str(f) for f in got]
+        _require([(f.rule, f.subject) for f in got]
+                 == [("REG003", s) for s in unrecorded],
+                 f"lint: {name} on this run's recordings: "
+                 f"{run_findings[name]}")
+    _require(run_findings["fleet"] == []
+             and [f.split(":")[0] for f in run_findings["wami"]]
+             == ["REG003 wami/tile=256"],
+             f"lint: this run's recordings: {run_findings}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.analysis.lint"], cwd=HERE,
+        env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in cli.stderr.splitlines()
+             if ln.startswith(("REG", "SPEC", "KNOB", "OBS", "SOC", "lint"))]
+    want = [str(f) for f in findings] + [
+        "lint: 4 finding(s) across [fleet, wami]"]
+    _require(cli.returncode == 1 and lines == want,
+             f"lint: the CLI exited {cli.returncode} printing {lines}")
+    wall = time.perf_counter() - t0
+    print(f"[lint] budget {H100_SMEM_OPTIN_BYTES} B = the card's "
+          f"{card} B; the registry: {[' '.join(k) for k in keys]}; this "
+          f"run's recordings: wami {run_findings['wami']}, fleet "
+          f"{run_findings['fleet']} (no REG004, no SPEC003); python -m "
+          f"repro_torch.core.analysis.lint exits 1 with those four lines; "
+          f"{wall:.1f} s", flush=True)
+    return {"smem_budget": card, "registry": [list(k) for k in keys],
+            "this_run": run_findings, "cli_rc": cli.returncode,
+            "wall_s": wall}
 
 
 # Walls of the WAMI DSE's recording with an earlier kernel, read by that
@@ -1902,8 +2342,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as rec_dir:
         dse = phase_dse(dev, table, rec_dir)
         fleet_dse = phase_fleet_dse(dev)
-        share_plm = phase_share_plm(dev, table, rec_dir, dse, fleet_dse)
+        share_plm, plm_fronts = phase_share_plm(dev, table, rec_dir, dse,
+                                                fleet_dse)
         service = phase_service(dev, table, rec_dir, dse)
+        soc = phase_soc(dev, table, rec_dir, plm_fronts)
+        lint = phase_lint(dev, rec_dir)
     kill_resume = phase_kill_resume(dev)
     pricing = phase_pricing()
     times = phase_times(dev, inputs, table)
@@ -1918,6 +2361,7 @@ def main(argv=None) -> int:
             "launches": dse["launches"][k["name"]],
             "share_plm_launches": share_plm["wami"]["launches"][k["name"]],
             "service_launches": service["launches"][k["name"]],
+            "soc_launches": soc["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1940,6 +2384,7 @@ def main(argv=None) -> int:
             "launches": fleet_dse["launches"][k["name"]],
             "share_plm_launches": share_plm["fleet"]["launches"][k["name"]],
             "service_launches": service["launches"][k["name"]],
+            "soc_launches": soc["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -1962,7 +2407,8 @@ def main(argv=None) -> int:
             json.dump({"nvidia_smi": smi, "kernels": kernels,
                        "functional": functional, "dse": dse,
                        "fleet_dse": fleet_dse, "share_plm": share_plm,
-                       "service": service, "kill_resume": kill_resume,
+                       "service": service, "soc": soc, "lint": lint,
+                       "kill_resume": kill_resume,
                        "pricing": pricing, "times": times,
                        "fleet_times": fleet_times}, f, indent=1)
     print(smi)

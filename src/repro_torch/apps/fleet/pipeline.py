@@ -351,4 +351,5 @@ register_app(App(
     calibrated_fallback=fleet_calibrated_tool,
     record_hint=_RECORD_HINT,
     plm_planner=lambda: PLMPlanner(fleet_tmg()),
+    parity_cases=fleet_cuda_parity_cases,
 ))

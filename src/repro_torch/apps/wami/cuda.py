@@ -322,4 +322,5 @@ register_app(App(
     plm_planner=wami_plm_planner,
     plm_tile_sizes=WAMI_TILE_SIZES,
     plm_tile_sizes_measured=(64, 128),
+    parity_cases=wami_cuda_parity_cases,
 ))

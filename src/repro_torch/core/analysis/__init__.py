@@ -1,4 +1,4 @@
-"""Static analysis over schedules and PLM plans.
+"""Static analysis over schedules, PLM plans, and the registry.
 
 Derivation-only tools (nothing here compiles or times a kernel):
 
@@ -13,7 +13,12 @@ Derivation-only tools (nothing here compiles or times a kernel):
   (``python -m repro_torch.core.analysis.verify`` runs it over plan
   artifacts);
 * :mod:`.packing` — the exhaustive-optimal shared-bank packer that gates
-  the greedy planner on small graphs.
+  the greedy planner on small graphs;
+* :mod:`.lint` — the static lint over the package's registry
+  (``python -m repro_torch.core.analysis.lint``): registry consistency,
+  kernel-spec static feasibility against the card's shared memory,
+  knob-space sanity, traced oracles and SoC artifact provenance, with
+  stable rule IDs (docs/analysis.md).
 
 Submodules are imported lazily: :mod:`repro_torch.core.plm.planner`
 pulls :mod:`.intervals` at plan time, and an eager ``verify`` import
@@ -22,12 +27,12 @@ here would close an import cycle back into the planner.
 
 from __future__ import annotations
 
-_SUBMODULES = ("intervals", "verify", "packing")
+_SUBMODULES = ("intervals", "verify", "lint", "packing")
 
 __all__ = list(_SUBMODULES) + [
     "BusyInterval", "ScheduleCertificate", "schedule_exclusive_pairs",
     "compat_source_for", "Violation", "PlanVerificationError",
-    "verify_plan", "optimal_plan",
+    "verify_plan", "optimal_plan", "LintFinding", "lint_app", "lint_all",
 ]
 
 _LAZY = {
@@ -39,6 +44,9 @@ _LAZY = {
     "PlanVerificationError": "verify",
     "verify_plan": "verify",
     "optimal_plan": "packing",
+    "LintFinding": "lint",
+    "lint_app": "lint",
+    "lint_all": "lint",
 }
 
 

@@ -63,6 +63,7 @@ __all__ = [
     "open_recording",
     "device_smem_budget",
     "device_time_s",
+    "H100_SMEM_OPTIN_BYTES",
 ]
 
 # one physical measurement inside one store: (component, ports, unrolls).
@@ -75,6 +76,14 @@ MeasureKey = Tuple[str, int, int]
 # a MeasurementSet routing key: (tile, device_kind); tile 0 = the
 # component's native tile
 SetKey = Tuple[int, str]
+
+
+# an NVIDIA H100's opt-in shared memory per block, in bytes: 227 KiB
+# (NVIDIA's Hopper tuning guide; cudaDevAttrMaxSharedMemoryPerBlockOptin
+# reads 232,448 on an H100 80GB HBM3).  What ``device_smem_budget``
+# reads on that card, for code that must not touch one: the static lint
+# checks the kernel specs' footprints against it.
+H100_SMEM_OPTIN_BYTES = 232448
 
 
 def device_smem_budget(device=None) -> int:

@@ -81,6 +81,12 @@ class App:
     ``recorded_tiles`` lists every tile the app records at;
     ``default_tiles`` is the subset sessions load unless the caller opts
     into more (``build_session(tiles=...)``).
+
+    ``parity_cases(tile, device=)`` lists ``(name, op, plain_fn, args)``
+    per kernel with its inputs on ``device`` (default: the CUDA card):
+    ``op(*args, ports=, unrolls=)`` is held against ``plain_fn(*args)``.
+    The card's parity check runs them; the lint checks their structure
+    with ``device="cpu"``.
     """
 
     name: str
@@ -104,6 +110,8 @@ class App:
     plm_planner: Optional[Callable[[], Any]] = None
     plm_tile_sizes: Tuple[int, ...] = ()            # analytical tile axis
     plm_tile_sizes_measured: Tuple[int, ...] = ()   # measured-drive axis
+    # kernel parity cases: (tile, device=) -> [(name, op, plain_fn, args)]
+    parity_cases: Optional[Callable[..., List]] = None
 
     def available_tiles(self) -> Tuple[int, ...]:
         """The recorded tiles whose store files exist on disk."""

@@ -44,4 +44,9 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("core.pricing", "core.surrogate", "core.obs.trace",
                  "core.obs.schema", "checkpoint.store", "serve.dse_service"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the SoC composition layer and the static lint
+    for name in ("core.soc", "core.soc.budget", "core.soc.workload",
+                 "core.soc.compose", "core.soc.verify",
+                 "core.analysis.lint"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
