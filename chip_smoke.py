@@ -118,7 +118,35 @@ which fails the run on any error:
      yardstick; a mamba2-780m layer at chunk 64 and at its own chunk
      256).  The warp's yardstick is ``grid_sample`` (bilinear, border
      padding, ``align_corners``) on a grid built outside the timed call;
-     its max|d| against the plain version prints for information.
+     its max|d| against the plain version prints for information;
+  6. lm-serve — the LM serving path (``[lm-serve]``: configs ->
+     ``SyntheticLM`` -> ``build_model`` -> ``ServeEngine``), whose models
+     compute attention and the SSD in plain PyTorch as the JAX package's
+     do: every arch at ``.reduced()`` (float32, TF32 off) with the same
+     weights on the card and on the CPU — prefill and next-step logits
+     within max|d| / max|ref| <= 1e-4, greedy ``generate`` tokens (8,
+     whisper with frames) equal (from a step whose top-2 logits lie
+     within 1e-4 relative on the CPU, teacher-forced along the CPU's
+     tokens); then gemma2-9b and zamba2-2.7b at full width in bfloat16,
+     random weights from seed 0, each freed before the next: six
+     ``SyntheticLM`` requests through ``ServeEngine(slots=4,
+     prompt_len=128, max_new=16)`` (two bursts, the second padded),
+     every request 16 tokens, the first burst equal to ``generate``'s,
+     whose first token is a manual prefill's argmax; prefill(129)
+     against prefill(128) + one decode step (gemma) or prefill(136)
+     against prefill(128) + eight (zamba2's SSD chain), in bfloat16
+     within 3e-2 relative (zamba2 1e-1: the JAX package's prefill and
+     decode round differently in bfloat16) and again in float32 (the
+     weights upcast) within 1e-3; layer 0 (zamba2: the shared block and
+     the first Mamba layer) in float32, card against CPU, within 1e-4;
+     parameter GB, init s, prefill ms, ms a decode step, tok/s and peak
+     memory printed.  Last, flash attention and the SSD scan timed at
+     the served shapes beside the models' own ``attention_core`` and
+     ``_ssd_chunked`` on the same inputs (routed nowhere), max|d|
+     printed against the kernels' tolerances (bf16 2e-2; SSD 1e-4 x
+     max(1, max|ref|)): gemma2-9b prefill and its last decode step (one
+     query over 143 keys, blocks (1, 13)), zamba2-2.7b attention (d 80)
+     and SSD (H 80, P 64, N 64, chunk 256 clipped to 128).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -2289,6 +2317,432 @@ def phase_fleet_times(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# the LM serving path: configs -> SyntheticLM -> build_model ->
+# ServeEngine, as the JAX package's launch/serve.py drives it
+# ----------------------------------------------------------------------
+# card against the port on the CPU, float32, TF32 off: max|d| / max|ref|
+LM_REDUCED_TOL = 1e-4
+# a step whose top-2 logits (on the CPU) lie closer than this, relative
+# to the row's max |logit|, is a near tie: from there the greedy tokens
+# are compared by teacher forcing along the CPU's tokens
+LM_TIE_GAP = 1e-4
+# prefill(S+n) against prefill(S) + n decode steps at full width: in
+# float32 (the same weights, upcast) to tests/test_models.py's SSD
+# decode-chain 1e-3; in the served bfloat16 to 3e-2, but 1e-1 for the
+# hybrid, whose prefill and decode round differently in bfloat16 in the
+# JAX package too (its depthwise conv sums in bfloat16 in the prefill and
+# in float32 in the step: ROADMAP Queue 3)
+LM_CHAIN_F32_TOL = 1e-3
+# one layer at full width in float32, card against the CPU
+LM_LAYER_TOL = 1e-4
+# the served models, at full width in their own dtype (bfloat16), with
+# random weights from seed 0: (arch, decode steps of the chain check,
+# its bfloat16 bound); the hybrid's chain decodes 8 steps
+LM_SERVE_ARCHS = (("gemma2-9b", 1, 3e-2), ("zamba2-2.7b", 8, 1e-1))
+LM_SERVE = dict(requests=6, slots=4, prompt_len=128, max_new=16)
+LM_LAYER_TOKENS = 16
+# the kernels at the served models' shapes (timed and compared only; the
+# models run their own plain attention_core and _ssd_chunked)
+LM_FLASH_ROWS = (
+    dict(label="gemma2-9b prefill", B=4, Sq=128, Skv=128, H=16, K=8, d=256,
+         window=4096, softcap=50.0, blocks=(64, 64)),
+    # the last decode step of a 128-token prompt and 16 new tokens: one
+    # query over 143 valid keys, at blocks that divide them (13 is off the
+    # 16-row grid: the general body)
+    dict(label="gemma2-9b decode", B=4, Sq=1, Skv=143, H=16, K=8, d=256,
+         window=4096, softcap=50.0, blocks=(1, 13)),
+    dict(label="zamba2-2.7b attention", B=4, Sq=128, Skv=128, H=32, K=32,
+         d=80, window=0, softcap=0.0, blocks=(64, 64)),
+)
+LM_SSD_ROW = dict(label="zamba2-2.7b SSD", Bz=4, S=128, H=80, P=64, N=64,
+                  chunk=256)
+
+
+def _lm_batch(cfg, B, S, seed, dev):
+    """Tokens (and a whisper's frames, qwen2-vl's M-RoPE positions) from
+    seeded numpy, on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        batch["mrope_positions"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32), (3, B, S)).copy()
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _rel(got, want):
+    """max|d| / max|want| in float64, both on the host."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    _require(got.shape == want.shape, (got.shape, want.shape))
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def _greedy_agree(what, cpu_model, card_model, cpu_batch, card_batch,
+                  cpu_toks, card_toks):
+    """The card's greedy tokens against the CPU's: each row equal up to
+    its first near-tie step, and from there, teacher-forced along the
+    CPU's tokens, the card's argmax equal at every step that is not a
+    near tie.  Returns the number of near-tie steps."""
+    import torch
+    B, n = cpu_toks.shape
+    S = cpu_batch["tokens"].shape[1]
+    lc, cc = cpu_model.prefill(cpu_batch, max_len=S + n)
+    lg, cg = card_model.prefill(card_batch, max_len=S + n)
+    first_tie = [n] * B
+    ties = 0
+    for t in range(n):
+        top = torch.topk(lc, 2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]) / lc.abs().amax(-1).clamp(min=1e-30)
+        _require(torch.equal(lc.argmax(-1), cpu_toks[:, t]), what)
+        got = lg.argmax(-1).cpu()
+        for b in range(B):
+            if gap[b] < LM_TIE_GAP:
+                ties += 1
+                first_tie[b] = min(first_tie[b], t)
+            else:
+                _require(int(got[b]) == int(cpu_toks[b, t]),
+                         f"{what}: row {b} step {t} argmax {int(got[b])} "
+                         f"!= {int(cpu_toks[b, t])}")
+        if t + 1 < n:
+            nxt = cpu_toks[:, t:t + 1]
+            lc, cc = cpu_model.decode_step(nxt, cc)
+            lg, cg = card_model.decode_step(nxt.to(lg.device), cg)
+    for b in range(B):
+        _require(torch.equal(card_toks[b, :first_tie[b]].cpu(),
+                             cpu_toks[b, :first_tie[b]]),
+                 f"{what}: row {b} tokens {card_toks[b].tolist()} != "
+                 f"{cpu_toks[b].tolist()}")
+    return ties
+
+
+def _lm_reduced(dev):
+    """Every arch at ``.reduced()`` (float32): the same weights on the
+    card and on the CPU; prefill and next-step logits within
+    LM_REDUCED_TOL, greedy tokens equal (whisper with frames)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.models import params_to_numpy
+    from repro_torch.serve import generate
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        ref = build_model(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+        model = params_from_numpy(build_model(cfg, dev),
+                                  params_to_numpy(ref))
+        cb = _lm_batch(cfg, 2, 12, 1, cpu)
+        gb = {k: v.to(dev) for k, v in cb.items()}
+        lc, cc = ref.prefill(cb, max_len=20)
+        lg, cg = model.prefill(gb, max_len=20)
+        prefill = _rel(lg, lc)
+        nxt = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab, (2, 1)).astype(np.int32))
+        lc, _ = ref.decode_step(nxt, cc)
+        lg, _ = model.decode_step(nxt.to(dev), cg)
+        decode = _rel(lg, lc)
+        for name, r in (("prefill", prefill), ("decode", decode)):
+            _require(r <= LM_REDUCED_TOL, f"[lm-serve] {arch} reduced "
+                     f"{name} logits: rel {r:.3g} > {LM_REDUCED_TOL}")
+        toks_c = generate(ref, cb, max_new=8)
+        toks_g = generate(model, gb, max_new=8)
+        ties = _greedy_agree(f"[lm-serve] {arch} reduced greedy", ref, model,
+                             cb, gb, toks_c, toks_g)
+        torch.cuda.synchronize(dev)
+        out[arch] = {"prefill_rel": prefill, "decode_rel": decode,
+                     "greedy_equal": bool(torch.equal(toks_c,
+                                                      toks_g.cpu())),
+                     "near_ties": ties}
+        print(f"[lm-serve] {arch} reduced f32, card against CPU: prefill "
+              f"rel {prefill:.3g}, decode rel {decode:.3g}, greedy tokens "
+              f"{'equal' if out[arch]['greedy_equal'] else 'equal up to '}"
+              f"{'' if out[arch]['greedy_equal'] else f'{ties} near ties'}",
+              flush=True)
+    return out
+
+
+def _layer_check(model, dev, seed):
+    """Layer 0 at full width in float32 on the card and on the CPU (TF32
+    off): a decoder's block, or the hybrid's shared block followed by its
+    first Mamba layer; returns max|d| / max|ref|."""
+    import numpy as np
+    import torch
+    from repro_torch.models.blocks import layer_params, make_positions
+    from repro_torch.models.ssm import mamba_sequence
+    from repro_torch.models.blocks import apply_norm
+    cfg = model.cfg
+    x = np.random.default_rng(seed).standard_normal(
+        (1, LM_LAYER_TOKENS, cfg.d_model)).astype(np.float32)
+
+    def run(device):
+        params = model.params()
+        idx = (0,) if cfg.family != "hybrid" else (0, 0)
+        lp = {k: v for k, v in params.items() if k.startswith("shared")}
+        lp["layer"] = layer_params(params["layers"], *idx)
+
+        def f32(t):
+            if isinstance(t, dict):
+                return {k: f32(v) for k, v in t.items()}
+            return t.detach().to(device, torch.float32)
+        lp = f32(lp)
+        h = torch.from_numpy(x).to(device)
+        pos = make_positions(1, LM_LAYER_TOKENS, device=device)
+        if cfg.family == "hybrid":
+            h, _ = model._shared_block(lp, h, pos)
+            y, _ = mamba_sequence(lp["layer"]["mamba"], cfg, apply_norm(
+                lp["layer"]["ln"], h, cfg.norm_kind))
+            return h + y
+        y, _, _ = model._block(lp["layer"], h, pos, model._windows(1)[0],
+                               moe=False)
+        return y
+
+    with torch.no_grad():
+        return _rel(run(dev), run(torch.device("cpu")))
+
+
+def _step_profile(dev, fn, calls=3):
+    """(kernels, device ms) per call of ``fn`` from a ``torch.profiler``
+    trace of the card alone over ``calls`` calls; (0, 0.0) where the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return (sum(e.count for e in rows) // calls,
+            sum(e.device_time_total for e in rows) / calls / 1e3)
+
+
+def _chain_rel(model, full, S):
+    """prefill(full)'s last logits against prefill(full[:, :S]) and one
+    decode step per remaining token, max|d| / max|ref|."""
+    import torch
+    n = full.shape[1]
+    want, _ = model.prefill({"tokens": full}, max_len=n)
+    got, c = model.prefill({"tokens": full[:, :S]}, max_len=n)
+    for t in range(S, n):
+        got, c = model.decode_step(full[:, t:t + 1], c)
+    _require(bool(torch.isfinite(got).all()), f"{model.cfg.name}: logits "
+             "finite")
+    return _rel(got.float(), want.float())
+
+
+def _lm_full_width(dev, cfg, chain, chain_tol):
+    """One served model at full width: built on the card from a seeded
+    generator, six SyntheticLM requests through ServeEngine, and the
+    checks and times of the [lm-serve] phase."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine, generate
+    n_req, slots = LM_SERVE["requests"], LM_SERVE["slots"]
+    S, n_new = LM_SERVE["prompt_len"], LM_SERVE["max_new"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    _require(model.device.type == "cuda", f"{cfg.name} not on the card")
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in model.parameters()) / 1e9
+    src = SyntheticLM(vocab=cfg.vocab, seed=0)
+    prompts = src.batch(step=0, shard=0, n_shards=1, batch=n_req,
+                        seq=S + chain)["tokens"]
+
+    eng = ServeEngine(model, slots=slots, prompt_len=S, max_new=n_new)
+    for rid in range(n_req):
+        eng.submit(rid, prompts[rid, :S])
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t0
+    _require(sorted(results) == list(range(n_req)), sorted(results))
+    _require(all(len(v) == n_new and all(0 <= t < cfg.vocab for t in v)
+                 for v in results.values()),
+             f"{cfg.name}: every request gets {n_new} tokens in the vocab")
+    toks = n_req * n_new
+
+    batch = {"tokens": torch.from_numpy(prompts[:slots, :S]).to(dev)}
+    gen = generate(model, batch, max_new=n_new)
+    logits, _ = model.prefill(batch, max_len=S + n_new)
+    _require(torch.equal(logits.argmax(-1), gen[:, 0]),
+             f"{cfg.name}: generate's first token is the prefill's argmax")
+    _require(all(results[r] == gen[r].tolist() for r in range(slots)),
+             f"{cfg.name}: the engine's first burst is generate's tokens")
+    prefill_ms = _wall_ms(dev, lambda: model.prefill(batch,
+                                                     max_len=S + n_new),
+                          reps=3)
+    _, cache = model.prefill(batch, max_len=S + n_new)
+    nxt = gen[:, :1]
+
+    def decode_steps():
+        c = dict(cache, len=S)
+        for _ in range(n_new - 1):
+            _, c = model.decode_step(nxt, c)
+    decode_ms = _wall_ms(dev, decode_steps, reps=3) / (n_new - 1)
+    step_kernels, step_device_ms = _step_profile(
+        dev, lambda: model.decode_step(nxt, dict(cache, len=S)))
+
+    # prefill(S + chain) against prefill(S) + chain decode steps
+    full = torch.from_numpy(prompts[:slots, :S + chain]).to(dev)
+    chain_rel = _chain_rel(model, full, S)
+    _require(chain_rel <= chain_tol,
+             f"{cfg.name}: prefill({S + chain}) against prefill({S}) + "
+             f"{chain} decode steps: rel {chain_rel:.3g} > {chain_tol}")
+    layer_rel = _layer_check(model, dev, seed=3)
+    _require(layer_rel <= LM_LAYER_TOL,
+             f"{cfg.name}: layer 0 in float32, card against CPU: rel "
+             f"{layer_rel:.3g} > {LM_LAYER_TOL}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the chain again in float32: the same weights, upcast exactly
+    model32 = build_model(dataclasses.replace(
+        cfg, dtype="float32", param_dtype="float32"), dev)
+    with torch.no_grad():
+        for name, p in model32.named_parameters():
+            p.copy_(model.get_parameter(name))
+    chain_f32 = _chain_rel(model32, full, S)
+    del model32
+    _require(chain_f32 <= LM_CHAIN_F32_TOL,
+             f"{cfg.name} in float32: prefill({S + chain}) against "
+             f"prefill({S}) + {chain} decode steps: rel {chain_f32:.3g} > "
+             f"{LM_CHAIN_F32_TOL}")
+    row = {"param_gb": param_gb, "init_s": init_s, "serve_s": serve_s,
+           "tok_per_s": toks / serve_s, "requests": n_req, "slots": slots,
+           "prompt_len": S, "max_new": n_new, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms,
+           "decode_step_kernels": step_kernels,
+           "decode_step_device_ms": step_device_ms,
+           "decode_idle_share": (1.0 - step_device_ms / decode_ms
+                                 if step_kernels else None),
+           "chain_steps": chain,
+           "chain_rel": chain_rel, "chain_tol": chain_tol,
+           "chain_f32_rel": chain_f32, "layer0_f32_rel": layer_rel,
+           "peak_gb": peak_gb, "sample_rid0": results[0]}
+    print(f"[lm-serve] {cfg.name} full width {cfg.dtype}: {param_gb:.2f} GB "
+          f"of parameters, init {init_s:.3f} s; {n_req} requests x {n_new} "
+          f"tokens over {slots} slots (prompt {S}) in {serve_s:.3f} s = "
+          f"{toks / serve_s:.1f} tok/s; prefill ({slots} x {S}) "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step "
+          + (f"({step_kernels} kernels, {step_device_ms:.2f} ms of device "
+             f"time: idle {1.0 - step_device_ms / decode_ms:.1%}); "
+             if step_kernels else "(no device time in the trace); ") +
+          f"prefill({S + chain}) against prefill({S}) + {chain} decode "
+          f"steps rel {chain_rel:.3g} (<= {chain_tol}), in float32 "
+          f"{chain_f32:.3g} (<= {LM_CHAIN_F32_TOL}); layer 0 f32 card "
+          f"against CPU rel {layer_rel:.3g} (<= {LM_LAYER_TOL}); peak "
+          f"{peak_gb:.2f} GB allocated; rid 0: {results[0][:8]}",
+          flush=True)
+    del model, eng, cache
+    return row
+
+
+def _lm_kernel_times(dev):
+    """flash attention and the SSD scan at the served models' shapes,
+    timed beside the models' own plain attention_core and _ssd_chunked
+    on the same inputs (routed nowhere); max|d| against them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import mha
+    from repro_torch.kernels.ssd_scan import ssd
+    from repro_torch.models.blocks import attention_core
+    from repro_torch.models.ssm import _ssd_chunked
+    out = {"flash_attention": {}, "ssd_scan": {}}
+    for r in LM_FLASH_ROWS:
+        B, Sq, Skv, H, K, d = (r[k] for k in ("B", "Sq", "Skv", "H", "K",
+                                              "d"))
+        q, k, v = _flash_inputs(dev, B, Sq, Skv, H, K, d, torch.bfloat16, 21)
+        off = Skv - Sq
+        q_pos = (torch.arange(Sq, device=dev) + off)[None].expand(B, Sq)
+        kv_pos = torch.arange(Skv, device=dev)[None].expand(B, Skv)
+        kw = dict(causal=True, window=r["window"], softcap=r["softcap"])
+
+        def kernel():
+            return mha(q, k, v, q_offset=off, block_q=r["blocks"][0],
+                       block_kv=r["blocks"][1], **kw)
+
+        def plain():
+            return attention_core(q, k, v, q_pos, kv_pos, causal=True,
+                                  window=r["window"], attn_cap=r["softcap"])
+        err = float((kernel().double() - plain().double()).abs().max())
+        _require(bool(torch.isfinite(kernel()).all()), r["label"])
+        lib = None
+        if not r["softcap"] and not r["window"] and Sq == Skv:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = _time_ms(dev, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes, flops = _flash_work(B, Sq, Skv, H, K, d, 2, True,
+                                    r["window"], off)
+        bound, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+        out["flash_attention"][r["label"]] = {
+            "ms": _time_ms(dev, kernel), "plain_ms": _time_ms(dev, plain),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "tol": FLASH_TOL["bfloat16"],
+            "within_tol": err < FLASH_TOL["bfloat16"],
+            "blocks": list(r["blocks"]), "q_offset": off}
+    r = LM_SSD_ROW
+    args = _ssd_inputs(dev, r["Bz"], r["S"], r["H"], r["P"], r["N"], 22)
+    got, want = ssd(*args, chunk=r["chunk"]), _ssd_chunked(*args,
+                                                           r["chunk"])
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    _require(all(bool(torch.isfinite(g).all()) for g in got), r["label"])
+    run = min(r["chunk"], r["S"])
+    nbytes, flops = _ssd_work(r["Bz"], r["S"], r["H"], r["P"], r["N"], run)
+    bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
+    out["ssd_scan"][r["label"]] = {
+        "ms": _time_ms(dev, lambda: ssd(*args, chunk=r["chunk"])),
+        "plain_ms": _time_ms(dev, lambda: _ssd_chunked(*args, r["chunk"])),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "bytes": nbytes, "flops": flops, "max_abs_err": err,
+        "tol": SSD_TOL * scale, "within_tol": err < SSD_TOL * scale,
+        "chunk": r["chunk"], "run_chunk": run}
+    for name, rows in out.items():
+        for label, t in rows.items():
+            lib = ("-" if t["library_ms"] is None
+                   else f"{t['library_ms']:.5f}")
+            print(f"[lm-serve] {name} at {label}: kernel {t['ms']:.5f} ms, "
+                  f"model's plain {t['plain_ms']:.5f} ms, library {lib} ms, "
+                  f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}); max|d| "
+                  f"{t['max_abs_err']:.3g} against the model's plain "
+                  f"({'within' if t['within_tol'] else 'BEYOND'} the "
+                  f"kernel's tolerance {t['tol']:.3g})", flush=True)
+    return out
+
+
+def phase_lm_serve(dev):
+    """The LM serving path (``[lm-serve]``): every arch reduced on the
+    card against the CPU, the served models at full width, and the two
+    kernels at their shapes.  Frees each model before the next."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = {"reduced": _lm_reduced(dev)}
+    for arch, chain, chain_tol in LM_SERVE_ARCHS:
+        out[arch] = _lm_full_width(dev, get_config(arch), chain, chain_tol)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernels"] = _lm_kernel_times(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[lm-serve] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -2351,6 +2805,7 @@ def main(argv=None) -> int:
     pricing = phase_pricing()
     times = phase_times(dev, inputs, table)
     fleet_times = phase_fleet_times(dev)
+    lm_serve = phase_lm_serve(dev)
 
     kernels = []
     for k in table:
@@ -2394,6 +2849,11 @@ def main(argv=None) -> int:
         }
         if "bound_3xtf32_ms" in t:
             entry["bound_3xtf32_ms"] = t["bound_3xtf32_ms"]
+        # at the served models' shapes, beside the models' plain versions
+        entry["lm_serve"] = {
+            label: {key: r[key] for key in keep + ("within_tol",)
+                    if key in r}
+            for label, r in lm_serve["kernels"][k["name"]].items()}
         for where, r in rows.items():
             if where.startswith(("model", f"d{WIDE_LAYER['d']}")):
                 entry[where.replace(" ", "_").replace("model", "model_width",
@@ -2410,7 +2870,8 @@ def main(argv=None) -> int:
                        "service": service, "soc": soc, "lint": lint,
                        "kill_resume": kill_resume,
                        "pricing": pricing, "times": times,
-                       "fleet_times": fleet_times}, f, indent=1)
+                       "fleet_times": fleet_times, "lm_serve": lm_serve},
+                      f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

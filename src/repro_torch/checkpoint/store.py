@@ -28,25 +28,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import leaves_with_paths
+
 __all__ = ["save", "restore", "latest_step", "list_steps"]
-
-
-def _leaves_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
-                       ) -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` in flattening order: dict keys sorted, sequences
-    by index, ``None`` empty."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), v) for i, v in enumerate(tree)]
-    else:
-        return [("/".join(prefix), tree)]
-    out: List[Tuple[str, Any]] = []
-    for key, sub in items:
-        out.extend(_leaves_with_paths(sub, prefix + (key,)))
-    return out
 
 
 def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
@@ -79,7 +63,7 @@ def save(root: str, step: int, tree: Any, *, extra: Optional[Dict] = None):
     os.makedirs(tmp)
 
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for path, leaf in _leaves_with_paths(tree):
+    for path, leaf in leaves_with_paths(tree):
         arr = np.asarray(leaf)
         fn = path.replace("/", "__") + ".npy"
         with open(os.path.join(tmp, fn), "wb") as f:
@@ -137,7 +121,7 @@ def restore(root: str, step: int, like: Any) -> Tuple[Any, Dict]:
     by_path = {m["path"]: m for m in manifest["leaves"]}
 
     leaves = []
-    for path, leaf in _leaves_with_paths(like):
+    for path, leaf in leaves_with_paths(like):
         m = by_path.get(path)
         if m is None:
             raise KeyError(f"checkpoint missing leaf {path}")

@@ -1,5 +1,4 @@
-"""Architecture configs and the shape registry (the architectures the
-port's slices use)."""
+"""Architecture configs (one module per assigned arch) + shape registry."""
 
 from .base import SHAPES, ModelConfig, ShapeSpec
 from .registry import ARCHS, cells, get_config, get_shape, list_archs

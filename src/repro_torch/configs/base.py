@@ -5,8 +5,6 @@ One :class:`ModelConfig` describes any member of the zoo: dense decoder
 LMs, MoE LMs, SSM (Mamba2), hybrid (Zamba2), encoder-decoder (Whisper)
 and VLM backbones.  Family-specific fields are simply unused by other
 families.  ``reduced()`` derives the CPU-smoke-test variant of a config.
-The port registers only the architectures its slices use
-(:mod:`.registry`).
 """
 
 from __future__ import annotations

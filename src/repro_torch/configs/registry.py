@@ -1,10 +1,5 @@
-"""Architecture registry: name -> :class:`ModelConfig`.
-
-Trimmed to the architectures the port's slices use: the fleet app prices
-its attention stage as a gemma2-9b share and its SSD stage as a
-mamba2-780m share.  The other architectures of the JAX package's
-registry come with the LM substrate.
-"""
+"""Architecture registry: ``--arch <id>`` resolution for every launcher
+(the JAX package's ten architectures)."""
 
 from __future__ import annotations
 
@@ -12,12 +7,24 @@ from typing import Dict, List
 
 from .base import SHAPES, ModelConfig, ShapeSpec
 from .gemma2_9b import CONFIG as _gemma2_9b
+from .kimi_k2 import CONFIG as _kimi_k2
 from .mamba2_780m import CONFIG as _mamba2_780m
+from .nemotron4_15b import CONFIG as _nemotron4_15b
+from .phi35_moe import CONFIG as _phi35_moe
+from .qwen2_0_5b import CONFIG as _qwen2_0_5b
+from .qwen2_vl_72b import CONFIG as _qwen2_vl_72b
+from .starcoder2_7b import CONFIG as _starcoder2_7b
+from .whisper_large_v3 import CONFIG as _whisper_large_v3
+from .zamba2_2_7b import CONFIG as _zamba2_2_7b
 
 __all__ = ["ARCHS", "get_config", "get_shape", "list_archs", "cells"]
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_gemma2_9b, _mamba2_780m)
+    c.name: c for c in (
+        _qwen2_0_5b, _gemma2_9b, _starcoder2_7b, _nemotron4_15b,
+        _kimi_k2, _phi35_moe, _whisper_large_v3, _mamba2_780m,
+        _qwen2_vl_72b, _zamba2_2_7b,
+    )
 }
 
 
@@ -42,8 +49,7 @@ def list_archs() -> List[str]:
 
 
 def cells() -> List[tuple]:
-    """Every registered (arch, shape) cell with its applicability
-    verdict."""
+    """All 40 (arch, shape) cells with applicability verdicts."""
     out = []
     for a in list_archs():
         cfg = ARCHS[a]

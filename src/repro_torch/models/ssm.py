@@ -1,0 +1,196 @@
+"""Mamba2 / SSD (state-space duality) blocks [arXiv:2405.21060].
+
+The JAX package's ``models/ssm.py`` in PyTorch: the chunked SSD dual
+form for training/prefill (quadratic within a chunk, linear across
+chunks; a loop over chunks in place of its ``lax.scan``) and the
+O(1)-per-token recurrence for decode.  Plain PyTorch, as the JAX
+package's models compute it outside any Pallas kernel; the CUDA SSD
+scan (``repro_torch.kernels.ssd_scan``) is timed against
+:func:`_ssd_chunked` but not routed here.
+
+Shapes: heads H = d_inner / head_dim P, single B/C group (G=1), state N.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .blocks import Leaf, Params, _dense_init, apply_norm
+
+__all__ = ["init_mamba", "mamba_sequence", "mamba_step", "init_ssm_state"]
+
+
+def init_mamba(cfg: ModelConfig, dtype) -> Params:
+    d, di = cfg.d_model, cfg.d_inner()
+    N, H, K = cfg.ssm_state, cfg.ssm_heads(), cfg.conv_kernel
+    conv_ch = di + 2 * N                       # x + B + C go through conv
+    out_std = 0.02 / math.sqrt(2 * max(1, cfg.n_layers))
+    f32 = torch.float32
+    return {
+        "in_proj": _dense_init((d, 2 * di + 2 * N + H), dtype),
+        "conv_w": _dense_init((K, conv_ch), dtype, std=0.2),
+        "conv_b": Leaf((conv_ch,), dtype, "zeros"),
+        "dt_bias": Leaf((H,), f32, "zeros"),
+        "A_log": Leaf((H,), f32, "log_linspace"),
+        "D": Leaf((H,), f32, "ones"),
+        "norm_scale": Leaf((di,), dtype, "zeros"),
+        "out_proj": _dense_init((di, d), dtype, std=out_std),
+    }
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    di, N, H = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads()
+    z, xbc, dt = torch.split(proj, [di, di + 2 * N, H], dim=-1)
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  xbc: (B, S, C), w: (K, C).
+
+    Returns (y, new_state) where state carries the trailing K-1 inputs.
+    """
+    K = w.shape[0]
+    S = xbc.shape[1]
+    if state is None:
+        state = xbc.new_zeros((xbc.shape[0], K - 1, xbc.shape[2]))
+    ext = torch.cat([state, xbc], dim=1)                      # (B, K-1+S, C)
+    y = sum(ext[:, i:i + S, :] * w[i] for i in range(K))
+    new_state = ext[:, -(K - 1):, :] if K > 1 else state
+    return F.silu(y + b), new_state
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                   device=None) -> Dict[str, torch.Tensor]:
+    H, P, N, K = (cfg.ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.conv_kernel)
+    di = cfg.d_inner()
+    return {
+        "ssm": torch.zeros((batch, H, P, N), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((batch, K - 1, di + 2 * N), dtype=dtype,
+                            device=device),
+    }
+
+
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD dual-form over chunks.
+
+    x:  (B, S, H, P)   inputs per head
+    dt: (B, S, H)      positive step sizes
+    A:  (H,)           negative decay rates
+    Bm, Cm: (B, S, N)  input/output projections (G=1, shared over heads)
+    Returns (y (B,S,H,P) float32, h_final (B,H,P,N) float32).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    n_chunks = (S + Q - 1) // Q
+    pad = n_chunks * Q - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+
+    def chunks(t):
+        return t.reshape((Bsz, n_chunks, Q) + t.shape[2:])
+
+    xc, dtc = chunks(x.float()), chunks(dt)
+    Bc, Cc = chunks(Bm.float()), chunks(Cm.float())
+    a = dtc * A                                     # (B, c, Q, H) log-decay
+    cum = torch.cumsum(a, dim=2)                    # within-chunk cumsum
+
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    iq = torch.arange(Q, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
+    ys = []
+    for c in range(n_chunks):
+        xq, dtq, bq, cq, cumq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], \
+            cum[:, c]
+        # decay matrix L[i, j] = exp(cum_i - cum_j) for i >= j else 0.
+        # Mask BEFORE exp: masked entries have diff > 0 and overflow to
+        # inf, and where(c, inf, 0) poisons the backward with 0*inf=NaN.
+        diff = cumq[:, :, None, :] - cumq[:, None, :, :]     # (B,Q,Q,H)
+        L = torch.exp(torch.where(causal, diff, -1e30))
+        # intra-chunk: scores (B,Q,Q) from C_i . B_j; weight by L and dt_j
+        s = torch.einsum("bin,bjn->bij", cq, bq)             # (B,Q,Q)
+        w = s[:, :, :, None] * L * dtq[:, None, :, :]        # (B,Q,Q,H)
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
+        # inter-chunk: contribution of the carried state
+        decay_in = torch.exp(cumq)                           # (B,Q,H)
+        y_inter = torch.einsum("bin,bhpn,bih->bihp", cq, h, decay_in)
+        ys.append(y_intra + y_inter)
+        # state update: h' = exp(sum a) h + sum_j exp(cum_Q - cum_j) dt_j B_j x_j
+        total = cumq[:, -1, :]                               # (B,H)
+        rem = torch.exp(total[:, None, :] - cumq)            # (B,Q,H)
+        contrib = torch.einsum("bjh,bjn,bjhp->bhpn", rem * dtq, bq, xq)
+        h = torch.exp(total)[:, :, None, None] * h + contrib
+    y = torch.stack(ys, dim=1).reshape(Bsz, n_chunks * Q, H, P)
+    return y[:, :S], h
+
+
+def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
+                   state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence Mamba2 block (training / prefill).
+
+    u: (B, S, d_model) -> (y, final_state).
+    """
+    B, S, d = u.shape
+    di, N, H, P = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads(), cfg.ssm_head_dim
+    proj = u @ p["in_proj"]
+    z, xbc, dt = _split_proj(cfg, proj)
+    conv_state = state["conv"] if state else None
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
+    A = -torch.exp(p["A_log"])                                    # (H,)
+    xh = xs.reshape(B, S, H, P)
+    h0 = state["ssm"] if state else None
+    y, h_fin = _ssd_chunked(xh.float(), dt, A, Bm, Cm, cfg.ssm_chunk, h0)
+    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y.reshape(B, S, di).to(u.dtype)
+    y = y * F.silu(z)
+    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
+    out = y @ p["out_proj"]
+    return out, {"ssm": h_fin, "conv": conv_state}
+
+
+def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
+               state: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token recurrent step (decode).  u: (B, 1, d_model).  The
+    SSM state stays float32 whatever the model dtype."""
+    B, _, d = u.shape
+    di, N, H, P = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads(), cfg.ssm_head_dim
+    proj = u[:, 0] @ p["in_proj"]                                 # (B, .)
+    z, xbc, dt = _split_proj(cfg, proj)
+    # conv step: append to the rolling window
+    win = torch.cat([state["conv"], xbc[:, None, :]], dim=1)      # (B,K,C)
+    y_conv = torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"]
+    xbc1 = F.silu(y_conv)
+    new_conv = win[:, 1:, :]
+    xs, Bm, Cm = torch.split(xbc1, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,H)
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(B, H, P).float()
+    h = state["ssm"]                                              # (B,H,P,N)
+    decay = torch.exp(dt * A)[:, :, None, None]
+    h_new = h * decay + torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh)
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h_new)
+    y = y + p["D"][None, :, None] * xh
+    y = y.reshape(B, di).to(u.dtype) * F.silu(z)
+    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
+    out = (y @ p["out_proj"])[:, None, :]
+    return out, {"ssm": h_new, "conv": new_conv}

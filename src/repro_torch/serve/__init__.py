@@ -1,5 +1,8 @@
-"""Serving: the concurrent multi-tenant DSE service frontend."""
+"""Serving: generation + host-side batched engine, and the concurrent
+multi-tenant DSE service frontend."""
 
 from .dse_service import Busy, DSEService, QueryHandle
+from .engine import Request, ServeEngine, generate, make_generate
 
-__all__ = ["DSEService", "QueryHandle", "Busy"]
+__all__ = ["generate", "make_generate", "ServeEngine", "Request",
+           "DSEService", "QueryHandle", "Busy"]

@@ -1,4 +1,5 @@
-"""Device selection and host-to-device conversion shared by the package.
+"""Device selection, host-to-device conversion and tree paths shared by
+the package.
 
 Every entry point takes a ``device`` argument.  ``None`` means the CUDA
 card: an entry point runs on the CPU only when the caller asks for it
@@ -8,12 +9,13 @@ quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "from_numpy"]
+__all__ = ["resolve_device", "from_numpy", "keystr_path",
+           "leaves_with_paths"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +39,29 @@ def from_numpy(arrays: Any, device=None) -> Any:
     if isinstance(arrays, (tuple, list)):
         return type(arrays)(from_numpy(a, dev) for a in arrays)
     return torch.from_numpy(np.ascontiguousarray(arrays)).to(dev)
+
+
+def keystr_path(keys: Iterable[Any]) -> str:
+    """The JAX package's ``'a/b/0'`` path of a leaf from its dict keys and
+    sequence indices, outermost first (what its ``keystr_path`` gives for
+    a ``tree_flatten_with_path`` key path)."""
+    return "/".join(str(k) for k in keys)
+
+
+def leaves_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
+                      ) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` of a tree of nested dicts, lists and tuples in
+    ``jax.tree_util``'s flattening order: dict keys sorted, sequences by
+    index, ``None`` empty; paths by :func:`keystr_path`."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(keystr_path(prefix), tree)]
+    out: List[Tuple[str, Any]] = []
+    for key, sub in items:
+        out.extend(leaves_with_paths(sub, prefix + (key,)))
+    return out

@@ -49,4 +49,16 @@ def test_port_imports_neither_jax_nor_repro():
                  "core.soc.compose", "core.soc.verify",
                  "core.analysis.lint"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the LM serving path
+    for name in ("configs.qwen2_0_5b", "configs.starcoder2_7b",
+                 "configs.nemotron4_15b", "configs.kimi_k2",
+                 "configs.phi35_moe", "configs.qwen2_vl_72b",
+                 "configs.zamba2_2_7b", "configs.whisper_large_v3",
+                 "data", "data.synthetic", "data.pipeline", "dist",
+                 "dist.sharding", "train", "train.remat", "models",
+                 "models.blocks", "models.transformer", "models.ssm",
+                 "models.ssm_lm", "models.hybrid", "models.encdec",
+                 "models.api", "models.convert", "serve.engine", "launch",
+                 "launch.serve"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
