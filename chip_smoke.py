@@ -146,7 +146,33 @@ which fails the run on any error:
      printed against the kernels' tolerances (bf16 2e-2; SSD 1e-4 x
      max(1, max|ref|)): gemma2-9b prefill and its last decode step (one
      query over 143 keys, blocks (1, 13)), zamba2-2.7b attention (d 80)
-     and SSD (H 80, P 64, N 64, chunk 256 clipped to 128).
+     and SSD (H 80, P 64, N 64, chunk 256 clipped to 128);
+  7. lm-train — the LM training path (``[lm-train]``: configs ->
+     ``build_model`` -> ``init_opt`` -> ``make_train_step`` ->
+     ``DataPipeline`` -> ``Watchdog`` -> ``AsyncCheckpointer``, through
+     ``launch.train.run``), plain PyTorch and autograd as the JAX
+     package trains through ``jax.grad`` of plain code: every arch at
+     ``.reduced()`` (float32, TF32 off), card against CPU from the same
+     weights — loss, grad norm and every gradient leaf of one step
+     within 1e-4, and AdamW's float32 and 8-bit updates from the CPU's
+     gradients within 1e-6 (parameters, moments, scales; int8 codes at
+     most one step apart in at most 1e-3 of them); then qwen2-0.5b at
+     full width and depth in bfloat16 through the launcher (40 steps of
+     16 x 128, checkpoints every 20): the mean loss of the last 5 steps
+     at least 0.05 below the first 5's, every loss and grad norm finite;
+     the same run in a child process SIGKILLed once ``LATEST`` reads
+     20, resumed by the launcher, its steps 21-40 within 1e-2 of the
+     uninterrupted run's losses, the step-20 checkpoint restored onto
+     the card bit for bit and written again by ``save_async`` into the
+     same files (snapshot ms, write s and GB printed); the loop's ms a
+     step with and without its per-step loss read, kernels a step, the
+     device's idle share and the top kernels by device time
+     (``torch.profiler``), and the models' layer split (one ``unbind``
+     a stacked leaf) against indexing each layer, in turns; last
+     zamba2-2.7b at full width, 6 steps of 4 x 512 with microbatches 2, remat full and
+     8-bit moments: finite, its float32 state at least 3.9x the 8-bit
+     state's bytes.  The kernels' counts are zeroed before the
+     full-width drives and read after (none is on this path).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -2507,10 +2533,11 @@ def _layer_check(model, dev, seed):
         return _rel(run(dev), run(torch.device("cpu")))
 
 
-def _step_profile(dev, fn, calls=3):
+def _step_profile(dev, fn, calls=3, top=None):
     """(kernels, device ms) per call of ``fn`` from a ``torch.profiler``
     trace of the card alone over ``calls`` calls; (0, 0.0) where the
-    trace holds no device time."""
+    trace holds no device time.  With ``top``, also the ``top`` kernels
+    by device time: ``[(name, ms a call, launches a call), ...]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2520,8 +2547,13 @@ def _step_profile(dev, fn, calls=3):
             fn()
         torch.cuda.synchronize(dev)
     rows = [e for e in prof.key_averages() if e.device_time_total > 0]
-    return (sum(e.count for e in rows) // calls,
-            sum(e.device_time_total for e in rows) / calls / 1e3)
+    out = (sum(e.count for e in rows) // calls,
+           sum(e.device_time_total for e in rows) / calls / 1e3)
+    if top is None:
+        return out
+    rows.sort(key=lambda e: -e.device_time_total)
+    return out + ([(e.key[:90], e.device_time_total / calls / 1e3,
+                    e.count // calls) for e in rows[:top]],)
 
 
 def _chain_rel(model, full, S):
@@ -2743,10 +2775,590 @@ def phase_lm_serve(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# the LM training path: configs -> build_model -> init_opt ->
+# make_train_step -> SyntheticLM/DataPipeline -> Watchdog ->
+# AsyncCheckpointer, latest_step, restore, as the JAX package's
+# launch/train.py drives it
+# ----------------------------------------------------------------------
+# (a) every arch reduced, float32, TF32 off, card against CPU from the
+# same weights: loss, grad norm and each gradient leaf (max|d| /
+# max|ref| of the leaf) of one step; the update from the CPU's gradients
+# in float32 within 1e-6 (the parameters and both moments).  The 8-bit
+# update's parameters and scales are held to 1e-6 too, its int8 codes to
+# at most one step apart in at most 1e-3 of them: a code is a rounding
+# of 127 * m / max|m| of its row, and the two devices' sums of squares
+# for the clip differ in the last bits, so a quotient that lies within
+# that of a half step rounds the other way
+LM_TRAIN_TOL = 1e-4
+LM_TRAIN_UPDATE_TOL = 1e-6
+LM_TRAIN_Q8_CODE_SHARE = 1e-3
+LM_TRAIN_REDUCED_BATCH = (4, 16)
+# (b) the launcher's own example at full width and depth (bf16), its
+# defaults otherwise (f32 moments, remat none), crashed after its step-20
+# checkpoint and resumed; held to test_system.py's loss drop
+LM_TRAIN_ARCH = "qwen2-0.5b"
+LM_TRAIN_RUN = dict(steps=40, batch=16, seq=128, ckpt_every=20)
+LM_TRAIN_KILL_AT = 20
+LM_TRAIN_LOSS_DROP = 0.05
+LM_TRAIN_RESUME_TOL = 1e-2      # bf16; atomics in the embedding's backward
+LM_TRAIN_TIMED_STEPS = 6
+# the timed turns of the loop, in an order that balances drift
+LM_TRAIN_TURNS = ("unbind", "no_read", "index", "index", "no_read", "unbind")
+LM_TRAIN_TOP_KERNELS = 12       # kernels by device time printed a step
+# (c) the three knobs (b) leaves off, at full width and depth
+LM_TRAIN_Q8_ARCH = "zamba2-2.7b"
+LM_TRAIN_Q8_RUN = dict(batch=4, seq=512, steps=6)
+LM_TRAIN_Q8_KNOBS = dict(microbatches=2, remat="full",
+                         quantized_moments=True)
+LM_TRAIN_Q8_RATIO = 3.9         # tests/test_autotune_hlo.py's bar
+
+
+def _lm_train_batch(cfg, B, S, seed, dev):
+    """A training batch (tokens, targets, a 90% mask; a whisper's frames,
+    qwen2-vl's M-RoPE positions) from seeded numpy, on ``dev``."""
+    import numpy as np
+    import torch
+    batch = _lm_batch(cfg, B, S, seed, dev)
+    rng = np.random.default_rng(seed + 1)
+    batch["targets"] = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    batch["mask"] = torch.from_numpy(
+        (rng.random((B, S)) < 0.9).astype(np.float32)).to(dev)
+    return batch
+
+
+def _grads(model, batch):
+    """(loss, {path: gradient}) of the train step's loss function."""
+    import torch
+    from repro_torch.train import make_loss_fn
+    from repro_torch.utils import leaves_with_paths
+    params = model.params()
+    loss, _ = make_loss_fn(model, None)(params, batch)
+    paths, leaves = zip(*leaves_with_paths(params))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def _worst_rel(want, got):
+    """The largest max|d| / max|want| over the leaves of two trees of
+    the same structure, and its path."""
+    from repro_torch.utils import leaves_with_paths
+    got = dict(leaves_with_paths(got))
+    return max((_rel(got[p], w), p) for p, w in leaves_with_paths(want))
+
+
+def _lm_train_reduced(dev):
+    """(a): every arch at ``.reduced()`` (float32), the same weights on
+    the card and on the CPU."""
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    from repro_torch.optim import (AdamWConfig, apply_updates,
+                                   apply_updates_q8, init_opt, init_opt_q8)
+    from repro_torch.train import TrainStepConfig, make_train_step
+    from repro_torch.utils import tree_leaves, tree_map, unflatten_like
+    cpu = torch.device("cpu")
+    B, S = LM_TRAIN_REDUCED_BATCH
+    opt_cfg = AdamWConfig(lr=1e-3)
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        ref = build_model(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+        init = params_to_numpy(ref)
+        model = params_from_numpy(build_model(cfg, dev), init)
+        cb = _lm_train_batch(cfg, B, S, 5, cpu)
+        gb = {k: v.to(dev) for k, v in cb.items()}
+        lc, gc = _grads(ref, cb)
+        lg, gg = _grads(model, gb)
+        row = {"loss_rel": _rel(lg, lc)}
+        row["grad_rel"], row["grad_worst"] = max(
+            (_rel(gg[p], gc[p]), p) for p in gc)
+        # the update from the CPU's gradients on both devices
+        for name, update, init_fn in (
+                ("f32", apply_updates, init_opt),
+                ("q8", apply_updates_q8, init_opt_q8)):
+            states = []
+            for m in (ref, model):
+                params_from_numpy(m, init)
+                params = m.params()
+                grads = unflatten_like(params, iter(
+                    gc[p].to(m.device) for p in gc))
+                states.append(update(opt_cfg, params, grads,
+                                     init_fn(params)))
+            (pc, sc, mc), (pg, sg, mg) = states
+            row[f"{name}_params_rel"], _ = _worst_rel(pc, pg)
+            row[f"{name}_grad_norm_rel"] = _rel(mg["grad_norm"],
+                                                mc["grad_norm"])
+            if name == "f32":
+                row["f32_moments_rel"] = max(_worst_rel(sc.mu, sg.mu)[0],
+                                             _worst_rel(sc.nu, sg.nu)[0])
+            else:
+                row["q8_scales_rel"] = max(
+                    _worst_rel(sc.mu_s, sg.mu_s)[0],
+                    _worst_rel(sc.nu_s, sg.nu_s)[0])
+                codes = differ = worst = 0
+                for a_tree, b_tree in ((sc.mu_q, sg.mu_q),
+                                       (sc.nu_q, sg.nu_q)):
+                    d = tree_map(lambda a, b: (a.int() - b.cpu().int()).abs(),
+                                 a_tree, b_tree)
+                    for t in tree_leaves(d):
+                        codes += t.numel()
+                        differ += int((t > 0).sum())
+                        worst = max(worst, int(t.max()))
+                row["q8_codes"], row["q8_codes_differ"] = codes, differ
+                row["q8_code_max_step"] = worst
+        # one step of make_train_step on each device (default knobs:
+        # remat full)
+        steps = []
+        for m, batch in ((ref, cb), (model, gb)):
+            params_from_numpy(m, init)
+            step = make_train_step(m, opt_cfg, TrainStepConfig())
+            params = m.params()
+            _, _, metrics = step(params, init_opt(params), batch)
+            steps.append(metrics)
+        row["step_loss_rel"] = _rel(steps[1]["loss"], steps[0]["loss"])
+        row["step_grad_norm_rel"] = _rel(steps[1]["grad_norm"],
+                                         steps[0]["grad_norm"])
+        torch.cuda.synchronize(dev)
+        for key in ("loss_rel", "grad_rel", "step_loss_rel",
+                    "step_grad_norm_rel"):
+            _require(row[key] <= LM_TRAIN_TOL,
+                     f"[lm-train] {arch} reduced {key} {row[key]:.3g} > "
+                     f"{LM_TRAIN_TOL} ({row['grad_worst']})")
+        for key in ("f32_params_rel", "f32_moments_rel", "f32_grad_norm_rel",
+                    "q8_params_rel", "q8_scales_rel", "q8_grad_norm_rel"):
+            _require(row[key] <= LM_TRAIN_UPDATE_TOL,
+                     f"[lm-train] {arch} reduced update {key} "
+                     f"{row[key]:.3g} > {LM_TRAIN_UPDATE_TOL}")
+        _require(row["q8_code_max_step"] <= 1 and row["q8_codes_differ"]
+                 <= LM_TRAIN_Q8_CODE_SHARE * row["q8_codes"],
+                 f"[lm-train] {arch} reduced q8 codes: {row}")
+        out[arch] = row
+        print(f"[lm-train] {arch} reduced f32, card against CPU: loss rel "
+              f"{row['loss_rel']:.3g}, worst grad rel {row['grad_rel']:.3g} "
+              f"({row['grad_worst']}); a make_train_step step: loss rel "
+              f"{row['step_loss_rel']:.3g}, grad norm rel "
+              f"{row['step_grad_norm_rel']:.3g}; the update from the CPU's "
+              f"grads: f32 params {row['f32_params_rel']:.3g}, moments "
+              f"{row['f32_moments_rel']:.3g}; q8 params "
+              f"{row['q8_params_rel']:.3g}, scales "
+              f"{row['q8_scales_rel']:.3g}, {row['q8_codes_differ']} of "
+              f"{row['q8_codes']} int8 codes one step apart", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_steps(launcher):
+    """Within the block, every step the launcher ``launcher`` builds
+    notes the host clock as it is entered and keeps its grad norm (a
+    device tensor: no sync).  Yields ``(entries, grad_norms)``."""
+    entries, norms = [], []
+    make = launcher.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def recorded(params, opt, batch):
+            entries.append(time.perf_counter())
+            params, opt, metrics = step(params, opt, batch)
+            norms.append(metrics["grad_norm"])
+            return params, opt, metrics
+        return recorded
+    launcher.make_train_step = recording
+    try:
+        yield entries, norms
+    finally:
+        launcher.make_train_step = make
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _leaf_bits(t):
+    """A host tensor's raw bits (its storage viewed as integers)."""
+    import torch
+    t = t.detach().cpu().contiguous()
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(width[t.element_size()])
+
+
+def _print_top(arch, top):
+    for name, ms, n in top or ():
+        print(f"[lm-train] {arch} a step: {ms:8.3f} ms in {n:5d} x {name}",
+              flush=True)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _indexed_layers(tree):
+    """The models' layer split before ``unstack_layers``: each layer's
+    parameters indexed from the stacked leaves (``layer_params``), so
+    autograd adds a zero-filled gradient of the whole leaf per layer."""
+    from repro_torch.models.blocks import layer_params
+    return [layer_params(tree, i) for i in range(_first_leaf(tree).shape[0])]
+
+
+@contextlib.contextmanager
+def _layer_split(split):
+    """Within the block the models split their stacked layers with
+    ``split`` in place of ``unstack_layers``."""
+    from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+    mods = (encdec, hybrid, ssm_lm, transformer)
+    kept = [m.unstack_layers for m in mods]
+    for m in mods:
+        m.unstack_layers = split
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, kept):
+            m.unstack_layers = f
+
+
+def _lm_train_child(root):
+    """The run ``_lm_train_full`` kills: the launcher into ``root``."""
+    import torch
+    from repro_torch.launch import train as launcher
+    launcher.run(LM_TRAIN_ARCH, ckpt_dir=root, device=torch.device("cuda", 0),
+                 **LM_TRAIN_RUN)
+
+
+def _lm_train_full(dev):
+    """(b): qwen2-0.5b at full width through ``launch.train.run``:
+    uninterrupted, then crashed after its step-20 checkpoint and resumed;
+    the checkpoint round trip; the loop's time, the host sync's cost and
+    the device's idle share."""
+    import gc
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                        restore)
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.train import TrainStepConfig, make_train_step
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(LM_TRAIN_ARCH)
+    steps, B, S = (LM_TRAIN_RUN[k] for k in ("steps", "batch", "seq"))
+    work = os.path.join(HERE, "build", "lm_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    row = {"arch": LM_TRAIN_ARCH, **LM_TRAIN_RUN}
+
+    # the uninterrupted run
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _recorded_steps(launcher) as (entries, norms):
+        params, losses = launcher.run(LM_TRAIN_ARCH, device=dev,
+                                      **LM_TRAIN_RUN)
+    row["run_s"] = time.perf_counter() - t0
+    row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    row["param_gb"] = sum(p.numel() * p.element_size()
+                          for p in tree_leaves(params)) / 1e9
+    norms = torch.stack(norms).float().cpu()
+    gaps = np.diff(entries)[1:]          # the first step warms up
+    row["loop_ms_per_step"] = _median(gaps) * 1e3
+    row["tok_per_s"] = B * S / _median(gaps)
+    row["losses"], row["grad_norms"] = losses, norms.tolist()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    row["loss_first5"], row["loss_last5"] = first, last
+    _require(len(losses) == steps and all(map(math.isfinite, losses))
+             and bool(torch.isfinite(norms).all()),
+             f"[lm-train] {LM_TRAIN_ARCH}: a loss or grad norm is not "
+             f"finite: {losses} {norms.tolist()}")
+    _require(last < first - LM_TRAIN_LOSS_DROP,
+             f"[lm-train] {LM_TRAIN_ARCH}: loss {first:.4f} -> {last:.4f}, "
+             f"not down by {LM_TRAIN_LOSS_DROP}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same run in a child, SIGKILLed once LATEST reads 20
+    root = os.path.join(work, "ckpt")
+    cmd = [sys.executable, os.path.abspath(__file__), "--lm-train-child",
+           root]
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "killed.log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 600
+            while proc.poll() is None and time.monotonic() < deadline:
+                if latest_step(root) == LM_TRAIN_KILL_AT:
+                    proc.send_signal(signal.SIGKILL)
+                    break
+                time.sleep(0.005)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+    row["child_s"] = time.perf_counter() - t0
+    _require(proc.returncode == -signal.SIGKILL,
+             f"[lm-train] the child run ended with {proc.returncode} before "
+             f"it was killed (log: {work}/killed.log)")
+    _require(latest_step(root) == LM_TRAIN_KILL_AT,
+             f"[lm-train] LATEST reads {latest_step(root)} after the kill")
+
+    # resumed in this process from the child's step-20 checkpoint
+    t0 = time.perf_counter()
+    params, resumed = launcher.run(LM_TRAIN_ARCH, ckpt_dir=root, device=dev,
+                                   **LM_TRAIN_RUN)
+    row["resume_s"] = time.perf_counter() - t0
+    want = losses[LM_TRAIN_KILL_AT:]
+    _require(len(resumed) == len(want),
+             f"[lm-train] the resumed run took {len(resumed)} steps, not "
+             f"{len(want)}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(resumed, want)]
+    row["resumed_losses"] = resumed
+    row["resume_loss_rel"] = max(rels)
+    row["resume_bitwise_equal"] = resumed == want
+    _require(row["resume_loss_rel"] <= LM_TRAIN_RESUME_TOL,
+             f"[lm-train] resumed losses {resumed} against the "
+             f"uninterrupted run's {want}: rel {max(rels):.3g} > "
+             f"{LM_TRAIN_RESUME_TOL}")
+
+    # the step-20 checkpoint as the launcher restores it, bit for bit,
+    # and written again by save_async: the same files
+    like = {"params": params, "opt": init_opt(params)}
+    state, extra = restore(root, LM_TRAIN_KILL_AT, like)
+    _require(extra == {"data_step": LM_TRAIN_KILL_AT}, extra)
+    step_dir = os.path.join(root, f"step_{LM_TRAIN_KILL_AT:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    restored = dict(zip((m["path"] for m in manifest), tree_leaves(state)))
+    for m in manifest:
+        t = restored[m["path"]]
+        _require(t.device.type == "cuda", m["path"])
+        saved = np.load(os.path.join(step_dir, m["file"]))
+        saved = torch.from_numpy(saved.view(f"i{saved.dtype.itemsize}"))
+        _require(torch.equal(_leaf_bits(t), saved.reshape(t.shape)),
+                 f"[lm-train] restored {m['path']} differs from the saved "
+                 f"bits")
+    again = os.path.join(work, "again")
+    torch.cuda.synchronize(dev)
+    ck = AsyncCheckpointer(again)
+    t0 = time.perf_counter()
+    ck.save_async(LM_TRAIN_KILL_AT, state, extra=extra)
+    row["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+    ck.wait()
+    row["write_s"] = time.perf_counter() - t0 - row["snapshot_ms"] / 1e3
+    row["ckpt_gb"] = 0.0
+    for m in manifest:
+        with open(os.path.join(step_dir, m["file"]), "rb") as f:
+            a = f.read()
+        with open(os.path.join(again, os.path.basename(step_dir),
+                               m["file"]), "rb") as f:
+            _require(f.read() == a, f"[lm-train] {m['file']} written "
+                                    f"again differs")
+        row["ckpt_gb"] += len(a) / 1e9
+    row["leaves"] = len(manifest)
+    del state, like, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher's loop timed apart, in turns before any profiler
+    # (LM_TRAIN_TURNS): "unbind", the step as the launcher runs it, its
+    # loss read every step; "no_read", one sync at the end; "index", the
+    # models' layers indexed from the stacked leaves (the layer split
+    # before unstack_layers).  Host wall and process CPU ms a step.
+    model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+    params = model.params()
+    opt = [init_opt(params)]
+    step = make_train_step(model, AdamWConfig(), TrainStepConfig(
+        remat="none", warmup_steps=max(1, steps // 20), total_steps=steps))
+    src = SyntheticLM(vocab=cfg.vocab, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                src.batch(step=i, shard=0, n_shards=1, batch=B,
+                          seq=S).items()}
+               for i in range(LM_TRAIN_TIMED_STEPS)]
+
+    def one(i=0, read=True):
+        _, opt[0], m = step(params, opt[0], batches[i % len(batches)])
+        return float(m["loss"]) if read else m["loss"]
+
+    from repro_torch.models.blocks import unstack_layers
+    turns = {name: [] for name in LM_TRAIN_TURNS}
+    for name in LM_TRAIN_TURNS:
+        with _layer_split(_indexed_layers if name == "index"
+                          else unstack_layers):
+            one(0)                      # warm, after a switch of split
+            torch.cuda.synchronize(dev)
+            t0, c0 = time.perf_counter(), time.process_time()
+            for i in range(LM_TRAIN_TIMED_STEPS):
+                one(i, read=name != "no_read")
+            torch.cuda.synchronize(dev)
+            turns[name].append({
+                "ms_per_step": (time.perf_counter() - t0) * 1e3
+                / LM_TRAIN_TIMED_STEPS,
+                "cpu_ms_per_step": (time.process_time() - c0) * 1e3
+                / LM_TRAIN_TIMED_STEPS})
+    row["turns"] = turns
+    row["ms_per_step_read"] = _median(
+        [t["ms_per_step"] for t in turns["unbind"]])
+    row["ms_per_step_no_read"] = _median(
+        [t["ms_per_step"] for t in turns["no_read"]])
+    row["step_kernels"], row["step_device_ms"], row["top_kernels"] = (
+        _step_profile(dev, one, top=LM_TRAIN_TOP_KERNELS))
+    row["idle_share"] = (1.0 - row["step_device_ms"] / row["ms_per_step_read"]
+                         if row["step_kernels"] else None)
+    with _layer_split(_indexed_layers):
+        row["index_kernels"], row["index_device_ms"] = _step_profile(dev, one)
+    row["tflop_per_step"] = 6 * sum(p.numel() for p in tree_leaves(
+        params)) * B * S / 1e12
+    del model, params, opt, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    idle = ("no device time in the trace" if row["idle_share"] is None else
+            f"{row['step_kernels']} kernels, {row['step_device_ms']:.2f} ms "
+            f"of device time: idle {row['idle_share']:.1%}")
+    print(f"[lm-train] {LM_TRAIN_ARCH} full width {cfg.dtype} "
+          f"({row['param_gb']:.2f} GB of parameters): {steps} steps of "
+          f"{B} x {S} in {row['run_s']:.2f} s, the launcher's loop "
+          f"{row['loop_ms_per_step']:.2f} ms a step = "
+          f"{row['tok_per_s']:.0f} tok/s, peak {row['peak_gb']:.2f} GB; "
+          f"loss {first:.4f} -> {last:.4f} (first and last 5); timed apart "
+          f"{row['ms_per_step_read']:.2f} ms a step with the per-step loss "
+          f"read, {row['ms_per_step_no_read']:.2f} without; {idle}",
+          flush=True)
+    _print_top(LM_TRAIN_ARCH, row["top_kernels"])
+    print(f"[lm-train] {LM_TRAIN_ARCH} in turns {LM_TRAIN_TURNS}, ms a "
+          f"step (host wall / process CPU): " + "; ".join(
+              f"{name} " + ", ".join(f"{t['ms_per_step']:.2f} / "
+                                     f"{t['cpu_ms_per_step']:.2f}"
+                                     for t in ts)
+              for name, ts in turns.items()) +
+          f"; the index split launches {row['index_kernels']} kernels, "
+          f"{row['index_device_ms']:.2f} ms on the device", flush=True)
+    print(f"[lm-train] {LM_TRAIN_ARCH} killed after LATEST read "
+          f"{LM_TRAIN_KILL_AT} ({row['child_s']:.1f} s), resumed in "
+          f"{row['resume_s']:.1f} s: steps {LM_TRAIN_KILL_AT + 1}-{steps} "
+          f"losses within rel {row['resume_loss_rel']:.3g} of the "
+          f"uninterrupted run's ("
+          f"{'bitwise equal' if row['resume_bitwise_equal'] else 'not bitwise equal'}"
+          f"); the restored tree equals the saved bits ({row['leaves']} "
+          f"leaves); save_async: snapshot {row['snapshot_ms']:.1f} ms, "
+          f"write {row['write_s']:.2f} s, {row['ckpt_gb']:.2f} GB, the "
+          f"same files", flush=True)
+    return row
+
+
+def _lm_train_q8(dev):
+    """(c): zamba2-2.7b at full width with microbatches, full remat and
+    8-bit moments."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_opt_q8
+    from repro_torch.train import TrainStepConfig, make_train_step
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(LM_TRAIN_Q8_ARCH)
+    B, S, n = (LM_TRAIN_Q8_RUN[k] for k in ("batch", "seq", "steps"))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+    params = model.params()
+    opt = [init_opt_q8(params)]
+    step = make_train_step(model, AdamWConfig(), TrainStepConfig(
+        warmup_steps=1, total_steps=n, **LM_TRAIN_Q8_KNOBS))
+    src = SyntheticLM(vocab=cfg.vocab, seed=0)
+    losses, norms, walls = [], [], []
+    for i in range(n):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(
+            step=i, shard=0, n_shards=1, batch=B, seq=S).items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, opt[0], m = step(params, opt[0], batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    kernels, device_ms, top = _step_profile(
+        dev, lambda: step(params, opt[0], batch), calls=1,
+        top=LM_TRAIN_TOP_KERNELS)
+    numel = [p.numel() for p in tree_leaves(params)]
+    f32_bytes = 2 * 4 * sum(numel) + 4
+    q8_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt[0]))
+    ms = _median(walls[1:]) * 1e3
+    row = {"arch": LM_TRAIN_Q8_ARCH, **LM_TRAIN_Q8_RUN, **LM_TRAIN_Q8_KNOBS,
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in tree_leaves(params)) / 1e9,
+           "losses": losses, "grad_norms": norms,
+           "ms_per_step": ms, "tok_per_s": B * S / ms * 1e3,
+           "step_kernels": kernels, "step_device_ms": device_ms,
+           "top_kernels": top,
+           "idle_share": 1.0 - device_ms / ms if kernels else None,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "f32_state_gb": f32_bytes / 1e9, "q8_state_gb": q8_bytes / 1e9,
+           "state_ratio": f32_bytes / q8_bytes}
+    del model, params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _require(all(map(math.isfinite, losses + norms)),
+             f"[lm-train] {LM_TRAIN_Q8_ARCH}: losses {losses}, grad norms "
+             f"{norms}")
+    _require(row["state_ratio"] >= LM_TRAIN_Q8_RATIO,
+             f"[lm-train] {LM_TRAIN_Q8_ARCH}: f32 state / q8 state "
+             f"{row['state_ratio']:.3f} < {LM_TRAIN_Q8_RATIO}")
+    idle = ("no device time in the trace" if row["idle_share"] is None else
+            f"{kernels} kernels, {device_ms:.1f} ms of device time: idle "
+            f"{row['idle_share']:.1%}")
+    print(f"[lm-train] {LM_TRAIN_Q8_ARCH} full width {cfg.dtype} "
+          f"({row['param_gb']:.2f} GB of parameters), {n} steps of {B} x "
+          f"{S}, microbatches 2, remat full, 8-bit moments: "
+          f"{ms:.1f} ms a step = {row['tok_per_s']:.0f} tok/s, peak "
+          f"{row['peak_gb']:.2f} GB; {idle}; losses "
+          f"{[round(x, 4) for x in losses]}; state {row['q8_state_gb']:.2f} "
+          f"GB q8 against {row['f32_state_gb']:.2f} GB f32 "
+          f"({row['state_ratio']:.3f}x)", flush=True)
+    _print_top(LM_TRAIN_Q8_ARCH, top)
+    return row
+
+
+def phase_lm_train(dev, table):
+    """The LM training path (``[lm-train]``): every arch reduced on the
+    card against the CPU; qwen2-0.5b through the launcher at full width,
+    crashed and resumed; zamba2-2.7b at full width with the three knobs.
+    The kernels' counts are zeroed before the full-width drives and read
+    after: no kernel lies on this path."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    counters = {k["name"]: k["counter"] for k in table}
+    counters.update(flash_attention=flash_attention_kernel,
+                    ssd_scan=ssd_scan_kernel)
+    t0 = time.perf_counter()
+    out = {"reduced": _lm_train_reduced(dev)}
+    for c in counters.values():
+        c.launches = 0
+    out[LM_TRAIN_ARCH] = _lm_train_full(dev)
+    out[LM_TRAIN_Q8_ARCH] = _lm_train_q8(dev)
+    out["launches"] = {n: c.launches for n, c in counters.items()}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[lm-train] {out['seconds']:.1f} s; kernel launches on the "
+          f"training path: {out['launches']}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
     ap.add_argument("--kill-resume-child", nargs=2, metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--lm-train-child", metavar="ROOT",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2773,6 +3385,9 @@ def main(argv=None) -> int:
     # float32 products in full float32, as the plain versions' reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.lm_train_child:
+        _lm_train_child(args.lm_train_child)
+        return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2806,6 +3421,7 @@ def main(argv=None) -> int:
     times = phase_times(dev, inputs, table)
     fleet_times = phase_fleet_times(dev)
     lm_serve = phase_lm_serve(dev)
+    lm_train = phase_lm_train(dev, table)
 
     kernels = []
     for k in table:
@@ -2817,6 +3433,7 @@ def main(argv=None) -> int:
             "share_plm_launches": share_plm["wami"]["launches"][k["name"]],
             "service_launches": service["launches"][k["name"]],
             "soc_launches": soc["launches"][k["name"]],
+            "lm_train_launches": lm_train["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2840,6 +3457,7 @@ def main(argv=None) -> int:
             "share_plm_launches": share_plm["fleet"]["launches"][k["name"]],
             "service_launches": service["launches"][k["name"]],
             "soc_launches": soc["launches"][k["name"]],
+            "lm_train_launches": lm_train["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -2870,7 +3488,8 @@ def main(argv=None) -> int:
                        "service": service, "soc": soc, "lint": lint,
                        "kill_resume": kill_resume,
                        "pricing": pricing, "times": times,
-                       "fleet_times": fleet_times, "lm_serve": lm_serve},
+                       "fleet_times": fleet_times, "lm_serve": lm_serve,
+                       "lm_train": lm_train},
                       f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

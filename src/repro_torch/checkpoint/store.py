@@ -12,11 +12,18 @@ the directory, then rewrite LATEST — a crash leaves either the previous
 complete checkpoint or a garbage .tmp that restore ignores, never a torn
 state.
 
-Trees are nested dicts, lists and tuples with numpy (or scalar) leaves;
-``None`` holds no leaf.  Dict keys flatten in sorted order and a leaf's
-path is its keys and indices joined by ``/`` — the layout and the path
-format of the JAX package's store, so a directory written by either
-package loads in the other.
+Trees are nested dicts, lists, tuples and NamedTuples with numpy,
+scalar or ``torch.Tensor`` leaves; ``None`` holds no leaf.  Dict keys
+flatten in sorted order, a NamedTuple's fields by name, and a leaf's
+path is its keys, field names and indices joined by ``/`` — the layout
+and the path format of the JAX package's store, so a directory written
+by either package loads in the other.
+
+A bfloat16 leaf is stored as the JAX package stores it: a ``|V2``
+``.npy`` of its raw bits, with ``bfloat16`` as its manifest dtype.
+``restore`` reads those bits back exactly, into a bfloat16 tensor or an
+``ml_dtypes.bfloat16`` array (or converted to the target's dtype), so
+no bfloat16 type is needed in numpy to write or read one.
 """
 
 from __future__ import annotations
@@ -24,25 +31,54 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..utils import leaves_with_paths
+from ..utils import leaves_with_paths, unflatten_like
 
 __all__ = ["save", "restore", "latest_step", "list_steps"]
 
 
-def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
-    """``like``'s structure with its leaves taken in order from
-    ``leaves``."""
-    if like is None:
-        return None
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves) for v in like)
-    return next(leaves)
+def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
+    """``(array, manifest dtype)`` of a leaf: a tensor through the host
+    (bfloat16 as its raw bits, a ``|V2`` array), else ``np.asarray``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _bf16_bits(arr: np.ndarray, dtype: str) -> bool:
+    """Whether ``arr`` holds the raw bits of a bfloat16 leaf (``np.load``
+    gives a ``|V2`` array for one without ``ml_dtypes``' dtype)."""
+    return (dtype == "bfloat16" and arr.dtype.kind == "V"
+            and arr.dtype.itemsize == 2)
+
+
+def _restored(arr: np.ndarray, dtype: str, like: Any) -> Any:
+    """``arr`` as ``like``'s kind of leaf: a tensor of its dtype on its
+    device, an array of its dtype, or (for an untyped ``like``) as
+    loaded."""
+    bf16 = _bf16_bits(arr, dtype)
+    if isinstance(like, torch.Tensor):
+        t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+             if bf16 else torch.from_numpy(arr))
+        return t.to(device=like.device, dtype=like.dtype)
+    if not hasattr(like, "dtype"):
+        return arr
+    want = np.asarray(like).dtype
+    if bf16:
+        if want.name == "bfloat16":          # ml_dtypes' type: the bits
+            return arr.view(want)
+        # bfloat16 is float32's upper half: exact through float32
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr.astype(want)
 
 
 def _fsync_dir(path: str):
@@ -64,7 +100,7 @@ def save(root: str, step: int, tree: Any, *, extra: Optional[Dict] = None):
 
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
     for path, leaf in leaves_with_paths(tree):
-        arr = np.asarray(leaf)
+        arr, dtype = _host_array(leaf)
         fn = path.replace("/", "__") + ".npy"
         with open(os.path.join(tmp, fn), "wb") as f:
             np.save(f, arr)
@@ -72,7 +108,7 @@ def save(root: str, step: int, tree: Any, *, extra: Optional[Dict] = None):
             os.fsync(f.fileno())
         manifest["leaves"].append({"path": path, "file": fn,
                                    "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)})
+                                   "dtype": dtype})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -114,7 +150,10 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore(root: str, step: int, like: Any) -> Tuple[Any, Dict]:
-    """Restore a checkpoint into the structure of ``like``."""
+    """Restore a checkpoint into the structure of ``like``.  Each leaf
+    takes the kind of ``like``'s leaf at its path: a tensor of that dtype
+    on that device, an array of that dtype, or (for an untyped leaf) the
+    array as stored."""
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -126,9 +165,9 @@ def restore(root: str, step: int, like: Any) -> Tuple[Any, Dict]:
         if m is None:
             raise KeyError(f"checkpoint missing leaf {path}")
         arr = np.load(os.path.join(d, m["file"]))
-        want = tuple(np.shape(leaf))
+        want = tuple(leaf.shape if isinstance(leaf, torch.Tensor)
+                     else np.shape(leaf))
         if tuple(arr.shape) != want:
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != {want}")
-        leaves.append(arr.astype(np.asarray(leaf).dtype)
-                      if hasattr(leaf, "dtype") else arr)
-    return _unflatten(like, iter(leaves)), manifest["extra"]
+        leaves.append(_restored(arr, m["dtype"], leaf))
+    return unflatten_like(like, iter(leaves)), manifest["extra"]

@@ -4,7 +4,8 @@ its in-model half).
 Model code marks its activations with the ``constrain*`` helpers, as the
 JAX package's models do.  Each is the identity unless a mesh is active,
 and nothing activates one yet: the rule tables, ``mesh_context`` and
-the launch-time specs come with the training slice.  So on one card the
+the launch-time specs wait for ROADMAP Queue 1 item 4, beside the dry
+run that is their only caller in the JAX package.  So on one card the
 helpers return their inputs unchanged, which is what the JAX package's
 do outside a ``mesh_context``.
 """

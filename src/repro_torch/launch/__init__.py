@@ -1,1 +1,2 @@
-"""Launchers: the serving CLI (``python -m repro_torch.launch.serve``)."""
+"""Launchers: the serving and training CLIs (``python -m
+repro_torch.launch.serve``, ``python -m repro_torch.launch.train``)."""

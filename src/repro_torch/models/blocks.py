@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -99,6 +99,19 @@ def layer_params(tree: Params, *idx: int) -> Params:
     """The slice ``[idx]`` of every leaf of a stacked tree (views)."""
     return {k: (layer_params(v, *idx) if isinstance(v, dict) else v[idx])
             for k, v in tree.items()}
+
+
+def unstack_layers(tree: Params) -> List[Params]:
+    """A tree stacked on its leading axis as the list of its per-layer
+    trees (views), each leaf split by one ``torch.unbind``.  Autograd
+    then gathers a leaf's gradient with one ``stack``, as the JAX
+    package's scan writes each layer's slice; indexing each layer
+    (``layer_params``) would add a zero-filled gradient of the whole
+    leaf per layer instead."""
+    split = {k: (unstack_layers(v) if isinstance(v, dict)
+                 else torch.unbind(v, 0)) for k, v in tree.items()}
+    n = len(next(iter(split.values())))
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 class ParamTree(nn.Module):

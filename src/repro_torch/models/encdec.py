@@ -18,8 +18,8 @@ from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
                      apply_mlp, apply_norm, init_attention, init_mlp,
-                     init_norm, layer_params, make_positions, masked_ce,
-                     stack_spec)
+                     init_norm, make_positions, masked_ce,
+                     stack_spec, unstack_layers)
 
 __all__ = ["EncDecLM"]
 
@@ -79,9 +79,10 @@ class EncDecLM(LMModule):
             return x + apply_mlp(lp["mlp"], cfg, h)
 
         one_layer = maybe_remat(one_layer)
+        layers = unstack_layers(params["enc_layers"])
         for i in range(cfg.n_encoder_layers):
             x = constrain_residual(x)
-            x = one_layer(layer_params(params["enc_layers"], i), x)
+            x = one_layer(layers[i], x)
         return apply_norm(params["enc_norm"], x, cfg.norm_kind)
 
     def _cross_kv(self, params, enc: torch.Tensor):
@@ -125,6 +126,7 @@ class EncDecLM(LMModule):
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
         ck, cv = cross_kv
 
+        layers = unstack_layers(params["dec_layers"])
         if caches is None:
             def one_layer(lp, x, k1, v1):
                 y, _ = self._dec_block(lp, x, positions, enc_pos,
@@ -134,12 +136,11 @@ class EncDecLM(LMModule):
             one_layer = maybe_remat(one_layer)
             for i in range(cfg.n_layers):
                 x = constrain_residual(x)
-                x = one_layer(layer_params(params["dec_layers"], i), x,
-                              ck[i], cv[i])
+                x = one_layer(layers[i], x, ck[i], cv[i])
             return x
         for i in range(cfg.n_layers):
             x = constrain_residual(x)
-            x, _ = self._dec_block(layer_params(params["dec_layers"], i), x,
+            x, _ = self._dec_block(layers[i], x,
                                    positions, enc_pos, cross_kv=(ck[i], cv[i]),
                                    self_cache=(caches["k"][i],
                                                caches["v"][i]),

@@ -21,8 +21,8 @@ from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
                      apply_mlp, apply_norm, init_attention, init_mlp,
-                     init_norm, layer_params, make_positions, masked_ce,
-                     stack_spec)
+                     init_norm, make_positions, masked_ce,
+                     stack_spec, unstack_layers)
 from .ssm import init_mamba, init_ssm_state, mamba_sequence, mamba_step
 from .ssm_lm import layer_state, store_states
 
@@ -89,6 +89,8 @@ class HybridLM(LMModule):
             return x + y, ist_new
 
         inner_fn = maybe_remat(inner_fn)
+        sites = [unstack_layers(site)
+                 for site in unstack_layers(params["layers"])]
         for g in range(self.n_sites):
             x = constrain_residual(x)
             x, _ = self._shared_block(
@@ -97,7 +99,7 @@ class HybridLM(LMModule):
                                                    caches["v"][g]),
                 cache_len=cache_len, kv_chunk=kv_chunk)
             for e in range(cfg.shared_attn_every):
-                x, st_new = inner_fn(layer_params(params["layers"], g, e), x,
+                x, st_new = inner_fn(sites[g][e], x,
                                      layer_state(states, g, e))
                 if caches is not None:
                     store_states(states, (g, e), st_new)

@@ -10,7 +10,7 @@ from ..configs.base import ModelConfig
 from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_norm, init_norm,
-                     layer_params, masked_ce, stack_spec)
+                     masked_ce, stack_spec, unstack_layers)
 from .ssm import init_mamba, init_ssm_state, mamba_sequence, mamba_step
 
 __all__ = ["MambaLM", "layer_state", "store_states"]
@@ -61,9 +61,10 @@ class MambaLM(LMModule):
 
         one_layer = maybe_remat(one_layer)
         new_states = []
+        layers = unstack_layers(params["layers"])
         for i in range(cfg.n_layers):
             x = constrain_residual(x)
-            x, st_new = one_layer(layer_params(params["layers"], i), x,
+            x, st_new = one_layer(layers[i], x,
                                   layer_state(states, i))
             new_states.append(st_new)
         return x, new_states
@@ -114,8 +115,7 @@ class MambaLM(LMModule):
         cfg = self.cfg
         params = self.params()
         x = params["embed"][tokens].to(self.dtype)
-        for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
+        for i, lp in enumerate(unstack_layers(params["layers"])):
             h = apply_norm(lp["ln"], x, cfg.norm_kind)
             y, st_new = mamba_step(lp["mamba"], cfg, h, layer_state(cache, i))
             store_states(cache, i, st_new)

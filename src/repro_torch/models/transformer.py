@@ -26,8 +26,8 @@ from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
                      apply_mlp, apply_moe, apply_norm, init_attention,
-                     init_mlp, init_moe, init_norm, layer_params,
-                     make_positions, stack_spec)
+                     init_mlp, init_moe, init_norm, make_positions,
+                     stack_spec, unstack_layers)
 
 __all__ = ["DecoderLM"]
 
@@ -127,9 +127,9 @@ class DecoderLM(LMModule):
         cfg = self.cfg
         n_dense = self._n_dense()
         wins = self._windows(n_dense)
+        dense = unstack_layers(params["dense_layers"]) if n_dense else []
         for i in range(n_dense):
-            x, _, _ = self._block(layer_params(params["dense_layers"], i), x,
-                                  positions, wins[i], moe=False,
+            x, _, _ = self._block(dense[i], x, positions, wins[i], moe=False,
                                   kv_chunk=kv_chunk)
         moe = bool(cfg.n_experts)
         wins = self._windows(cfg.n_layers - n_dense, offset=n_dense)
@@ -141,9 +141,10 @@ class DecoderLM(LMModule):
 
         one_layer = maybe_remat(one_layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = unstack_layers(params["layers"])
         for i, win in enumerate(wins):
             x = constrain_residual(x)
-            x, a = one_layer(layer_params(params["layers"], i), x, win)
+            x, a = one_layer(layers[i], x, win)
             aux = aux + a
         return x, aux
 
@@ -219,17 +220,19 @@ class DecoderLM(LMModule):
         cfg = self.cfg
         n_dense = self._n_dense()
         wins = self._windows(n_dense)
+        dense = unstack_layers(params["dense_layers"]) if n_dense else []
         for i in range(n_dense):
             x, _, _ = self._block(
-                layer_params(params["dense_layers"], i), x, positions,
+                dense[i], x, positions,
                 wins[i], moe=False, kv_chunk=kv_chunk,
                 cache=(cache["k_dense"][i], cache["v_dense"][i]),
                 cache_len=pos)
         moe = bool(cfg.n_experts)
         wins = self._windows(cfg.n_layers - n_dense, offset=n_dense)
+        layers = unstack_layers(params["layers"])
         for i, win in enumerate(wins):
             x = constrain_residual(x)
-            x, _, _ = self._block(layer_params(params["layers"], i), x,
+            x, _, _ = self._block(layers[i], x,
                                   positions, win, moe=moe,
                                   kv_chunk=kv_chunk,
                                   cache=(cache["k"][i], cache["v"][i]),

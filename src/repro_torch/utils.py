@@ -9,13 +9,14 @@ quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Iterable, List, Tuple
+from typing import Any, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["resolve_device", "from_numpy", "keystr_path",
-           "leaves_with_paths"]
+           "leaves_with_paths", "tree_leaves", "unflatten_like",
+           "tree_map"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,15 +49,23 @@ def keystr_path(keys: Iterable[Any]) -> str:
     return "/".join(str(k) for k in keys)
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def leaves_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
                       ) -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` of a tree of nested dicts, lists and tuples in
-    ``jax.tree_util``'s flattening order: dict keys sorted, sequences by
-    index, ``None`` empty; paths by :func:`keystr_path`."""
+    """``(path, leaf)`` of a tree of nested dicts, lists, tuples and
+    NamedTuples in ``jax.tree_util``'s flattening order: dict keys
+    sorted, sequences by index, a NamedTuple's fields in order and by
+    name (as ``GetAttrKey`` names them: ``opt/step``, ``opt/mu/a``),
+    ``None`` empty; paths by :func:`keystr_path`."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = list(zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -65,3 +74,31 @@ def leaves_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
     for key, sub in items:
         out.extend(leaves_with_paths(sub, prefix + (key,)))
     return out
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in :func:`leaves_with_paths`' order."""
+    return [leaf for _, leaf in leaves_with_paths(tree)]
+
+
+def unflatten_like(like: Any, leaves: Iterator[Any]) -> Any:
+    """``like``'s structure with its leaves taken in order from the
+    iterator ``leaves`` (the inverse of :func:`tree_leaves`)."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: unflatten_like(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(unflatten_like(v, leaves) for v in like))
+    if isinstance(like, (list, tuple)):
+        return type(like)(unflatten_like(v, leaves) for v in like)
+    return next(leaves)
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest``
+    (of the same structure), in ``tree``'s structure."""
+    others = [tree_leaves(t) for t in rest]
+    return unflatten_like(tree, iter(
+        [fn(leaf, *(o[i] for o in others))
+         for i, leaf in enumerate(tree_leaves(tree))]))

@@ -61,4 +61,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "models.api", "models.convert", "serve.engine", "launch",
                  "launch.serve"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the LM training path
+    for name in ("optim", "optim.adamw", "optim.quantized",
+                 "optim.schedule", "dist.compression", "train.step",
+                 "checkpoint", "checkpoint.async_ckpt", "ft", "ft.elastic",
+                 "ft.straggler", "ft.watchdog", "launch.train"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"

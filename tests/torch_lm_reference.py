@@ -14,6 +14,7 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
@@ -26,6 +27,18 @@ F32_TOL = 1e-5
 # a reference step whose top-2 logits lie closer than this (relative to
 # the row's max |logit|) is a near tie: compare by teacher forcing
 TIE_GAP = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """Run a module's tests with torch on one thread (autouse where a test
+    module imports it).  With pytest-xdist's workers sharing the cores,
+    each worker's own torch thread pool oversubscribes them: a training
+    loop of small ops that takes 1 s alone took minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flat_params(params) -> Dict[str, np.ndarray]:
