@@ -172,7 +172,30 @@ which fails the run on any error:
      zamba2-2.7b at full width, 6 steps of 4 x 512 with microbatches 2, remat full and
      8-bit moments: finite, its float32 state at least 3.9x the 8-bit
      state's bytes.  The kernels' counts are zeroed before the
-     full-width drives and read after (none is on this path).
+     full-width drives and read after (none is on this path);
+  8. lm-dryrun — the sharded dry run (``[lm-dryrun]``, in a child
+     process, ``chip_smoke.py --lm-dryrun-child OUT``, since a process
+     group belongs to the whole process; its files under
+     ``build/lm_dryrun/``): (a) ``examples/autoshard.py`` through the
+     port at the card's 80 GB — ``choose_train_knobs`` for every arch on
+     train_4k over (data 16, model 16) through one ledger, equal to the
+     reference's plans (``LM_DRYRUN_PLANS``), 60 priced; the elastic
+     re-plan of gemma2-9b on ``ft.replan((2, 16, 16), ..., 500)``; the
+     unchanged stage again with 0 new invocations; (b)
+     ``launch.dryrun.run_cell`` over ``LM_DRYRUN_CELLS`` at full width
+     and depth on a fake group of 256 or 512 ranks (rank 0's program
+     traced by ``make_fx`` over fake tensors on the card): status,
+     trace s, the memory triple, FLOPs and bytes a device, collective
+     bytes by kind, the roofline on the H100 table, and the planned
+     bytes beside argument + temp for the train cells; (c) the mapped
+     rung of qwen2-0.5b x train_4k x pod (mb 1 dots) traces past the
+     card's memory, so the ladder's rung that runs, mb 2 full
+     (``LM_DRYRUN_RUNG``), is traced and run for real: rank 0's partition on the card with real
+     tensors, one warm-up step and two timed, ``max_memory_allocated``
+     beside the traced and the planned bytes, ms a step beside the
+     roofline compute term (the fake group moves no data: the loss is
+     not checked).  No kernel is on this path; the child's counts come
+     back.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -3353,12 +3376,283 @@ def phase_lm_train(dev, table):
     return out
 
 
+# ----------------------------------------------------------------------
+# [lm-dryrun]: the knob walk, the sharded dry run, one rung on the card
+# ----------------------------------------------------------------------
+# the reference's knob walk at the card's 80 GB over (data 16, model 16)
+# on train_4k: arch -> (microbatches, remat, accumulation, planned GB)
+LM_DRYRUN_PLANS = {
+    "gemma2-9b": (1, "full", "float32", 52.60),
+    "kimi-k2-1t-a32b": (8, "full", "bfloat16", 66.91),
+    "mamba2-780m": (1, "full", "float32", 28.30),
+    "nemotron-4-15b": (2, "full", "float32", 40.06),
+    "phi3.5-moe-42b-a6.6b": (1, "full", "bfloat16", 48.00),
+    "qwen2-0.5b": (1, "dots", "float32", 29.00),
+    "qwen2-vl-72b": (4, "full", "bfloat16", 70.80),
+    "starcoder2-7b": (1, "full", "float32", 52.43),
+    "whisper-large-v3": (1, "dots", "float32", 54.27),
+    "zamba2-2.7b": (1, "full", "float32", 48.29),
+}
+LM_DRYRUN_PRICED = 60
+LM_DRYRUN_SURVIVORS = 500        # the elastic event: 12 of 512 ranks lost
+# (arch, shape, mesh, --auto), traced at full width and depth
+LM_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "pod", True),
+                   ("qwen2-0.5b", "train_4k", "multipod", True),
+                   ("gemma2-9b", "decode_32k", "pod", False),
+                   ("zamba2-2.7b", "prefill_32k", "pod", False))
+# the cell whose rung runs on the card, and the rung: the walk maps
+# mb 1 dots, which traces at 896.6 GB a device (the float32 scores of 14
+# heads the model axis cannot split, saved as products); mb 1 full
+# peaked at 79.69 GB allocated in one run and ran out of memory in
+# another (14 GiB score buffers, fragmented); mb 2 full is the next
+# rung (my chip runs, PR 23; PERF.md §6)
+LM_DRYRUN_CONFIRM = ("qwen2-0.5b", "train_4k", "pod")
+LM_DRYRUN_RUNG = dict(microbatches=2, remat="full")
+LM_DRYRUN_WARMUP, LM_DRYRUN_STEPS = 1, 2
+LM_DRYRUN_TIMEOUT = 900
+
+
+def _dryrun_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    counters = {k["name"]: k["counter"] for k in kernel_table()[1]}
+    counters.update(flash_attention=flash_attention_kernel,
+                    ssd_scan=ssd_scan_kernel)
+    return counters
+
+
+def _autoshard_walk():
+    """(a): ``examples/autoshard.py`` through the port at the card's
+    budget — every arch on train_4k over (data 16, model 16) through one
+    shared ledger, the elastic re-plan of gemma2-9b, then the unchanged
+    stage again."""
+    from repro_torch.configs import get_config, get_shape, list_archs
+    from repro_torch.core.autotune import XLAOracle, choose_train_knobs
+    from repro_torch.core.oracle import OracleLedger
+    from repro_torch.ft import replan
+    shape = get_shape("train_4k")
+    mesh = {"data": 16, "model": 16}
+    ledger = OracleLedger(XLAOracle())
+    plans = {}
+    print(f"[lm-dryrun] {'arch':22s} {'mb':>3s} {'remat':6s} {'accum':9s} "
+          f"{'plan GB':>8s} fits", flush=True)
+    for arch in list_archs():
+        p = choose_train_knobs(get_config(arch), shape, mesh, ledger=ledger)
+        plans[arch] = (p.microbatches, p.remat, p.accum_dtype,
+                       round(p.est_bytes / 1e9, 2))
+        print(f"[lm-dryrun] {arch:22s} {p.microbatches:3d} {p.remat:6s} "
+              f"{p.accum_dtype:9s} {p.est_bytes / 1e9:8.2f} "
+              f"{'Y' if p.fits else 'N'}", flush=True)
+    priced, stages = ledger.total(), len(ledger.invocations)
+    plan = replan((2, 16, 16), ("pod", "data", "model"), LM_DRYRUN_SURVIVORS)
+    mesh2 = dict(zip(plan.axis_names, plan.new_shape))
+    gemma = get_config("gemma2-9b")
+    p2 = choose_train_knobs(gemma, shape, mesh2, ledger=ledger)
+    replan_new = ledger.total() - priced
+    before = ledger.total()
+    choose_train_knobs(gemma, shape, mesh, ledger=ledger)
+    again = ledger.total() - before
+    print(f"[lm-dryrun] {priced} priced invocations across "
+          f"{stages} stages; elastic event "
+          f"({LM_DRYRUN_SURVIVORS} of 512 ranks): mesh {mesh2}, gemma2-9b "
+          f"re-planned mb {p2.microbatches} remat {p2.remat} "
+          f"({p2.est_bytes / 1e9:.2f} GB) with {replan_new} new pricings; "
+          f"unchanged-stage re-plan: {again} new invocations", flush=True)
+    _require(plans == {a: LM_DRYRUN_PLANS[a] for a in plans}
+             and set(plans) == set(LM_DRYRUN_PLANS),
+             f"[lm-dryrun] the walk's plans differ from the reference's: "
+             f"{plans}")
+    _require(priced == LM_DRYRUN_PRICED,
+             f"[lm-dryrun] {priced} priced invocations, not "
+             f"{LM_DRYRUN_PRICED}")
+    _require(again == 0, f"[lm-dryrun] the unchanged re-plan priced {again}")
+    return {"plans": plans, "priced": priced, "replan_mesh": mesh2,
+            "replan": [p2.microbatches, p2.remat, p2.est_bytes],
+            "replan_new": replan_new, "unchanged_new": again}
+
+
+def _print_cell(rec):
+    m, c, r = rec["memory"], rec["cost"], rec["roofline"]
+    coll = rec["collectives"]
+    kinds = ", ".join(f"{k} {coll['per_op'][k] / 1e9:.3f} GB x "
+                      f"{coll['per_op_count'][k]}"
+                      for k in sorted(coll["per_op"]))
+    plan = ""
+    if "planned_bytes" in rec:
+        plan = (f"; planned {rec['planned_bytes'] / 1e9:.2f} GB beside "
+                f"argument + temp "
+                f"{(m['argument_bytes'] + m['temp_bytes']) / 1e9:.2f} GB "
+                f"(mb {rec['microbatches']}, {rec['remat']})")
+    print(f"[lm-dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+          f"({rec['devices']} ranks): {rec['status']}, trace "
+          f"{rec['lower_s']} s, analysis {rec['compile_s']} s; argument "
+          f"{m['argument_bytes'] / 1e9:.3f} GB, output "
+          f"{m['output_bytes'] / 1e9:.3f} GB, temp "
+          f"{m['temp_bytes'] / 1e9:.3f} GB a device; "
+          f"{c['flops_per_device']:.4g} FLOP and "
+          f"{c['bytes_per_device']:.4g} B a device; collectives {kinds}; "
+          f"roofline on the H100 table: compute {r['t_compute_s']:.4g} s, "
+          f"memory {r['t_memory_s']:.4g} s, collective "
+          f"{r['t_collective_s']:.4g} s, bound {r['bound']}{plan}",
+          flush=True)
+
+
+def _confirm_rung(dev, walk, records, rec_dir):
+    """(c): a rung of ``LM_DRYRUN_CONFIRM``'s cell run for real — rank
+    0's partition on the card, the trace's shardings with real tensors.
+    The walk's mapped rung must trace past the card's memory for
+    ``LM_DRYRUN_RUNG`` to stand in for it (the next rung down the ladder
+    that runs: PERF.md §6); the stand-in is traced too."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core.autotune import _LADDER, price_train_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    arch, shape_name, mesh_kind = LM_DRYRUN_CONFIRM
+    cfg, shape = get_config(arch), get_shape(shape_name)
+    mb, remat, accum, _ = walk["plans"][arch]
+    mapped = dict(microbatches=mb, remat=remat)
+    mesh_sizes = dryrun.MESH_SHAPES[mesh_kind]
+    card = torch.cuda.get_device_properties(dev).total_memory
+    rung = LM_DRYRUN_RUNG
+    rows = []
+    for r in (mapped, rung) if rung != mapped else (mapped,):
+        rec = records[(arch, shape_name, mesh_kind)] if r == mapped else \
+            dryrun.run_cell(arch, shape_name, mesh_kind, accum_dtype=accum,
+                            out_dir=rec_dir, verbose=False, device=dev,
+                            extra_tag=f"mb{r['microbatches']}_{r['remat']}",
+                            **r)
+        _require(rec["status"] == "ok",
+                 f"[lm-dryrun] rung {r}: {rec.get('error')}")
+        plan = price_train_step(cfg, shape, mesh_sizes, accum_dtype=accum,
+                                **r)
+        rows.append({"rung": r, "lower_s": rec["lower_s"],
+                     "traced_bytes": rec["memory"]["argument_bytes"]
+                     + rec["memory"]["temp_bytes"],
+                     "planned_bytes": plan.est_bytes,
+                     "t_compute_s": rec["roofline"]["t_compute_s"]})
+        print(f"[lm-dryrun] rung mb {r['microbatches']} {r['remat']}: "
+              f"traced argument + temp {rows[-1]['traced_bytes'] / 1e9:.2f} "
+              f"GB against the card's {card / 1e9:.2f} GB (planned "
+              f"{plan.est_bytes / 1e9:.2f} GB)", flush=True)
+    if rung != mapped:
+        _require(_LADDER.index(rung) > _LADDER.index(mapped)
+                 and rows[0]["traced_bytes"] > card,
+                 f"[lm-dryrun] the mapped rung {mapped} fits the card "
+                 f"({rows[0]['traced_bytes'] / 1e9:.2f} GB traced): confirm "
+                 f"it, not {rung}")
+    chosen = rows[-1]
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multipod"),
+                                device=dev)
+    run = dryrun.run_partition(cfg, shape, mesh, accum_dtype=accum,
+                               steps=LM_DRYRUN_STEPS, warmup=LM_DRYRUN_WARMUP,
+                               **rung)
+    ms = float(np.median(run["step_ms"]))
+    row = {"rung": rung, "mapped": mapped, "rows": rows,
+           "max_memory_allocated": run["max_memory_allocated"],
+           "traced_bytes": chosen["traced_bytes"],
+           "planned_bytes": chosen["planned_bytes"],
+           "step_ms": run["step_ms"], "ms": ms,
+           "t_compute_ms": chosen["t_compute_s"] * 1e3,
+           "local_input_bytes": run["local_input_bytes"],
+           "card_bytes": card}
+    moved = ("" if rung == mapped else
+             f" (the mapped rung mb {mb} {remat} traces past the card)")
+    print(f"[lm-dryrun] confirmed {arch} x {shape_name} x {mesh_kind} at mb "
+          f"{rung['microbatches']} {rung['remat']}{moved}: rank 0's "
+          f"partition on the card, max_memory_allocated "
+          f"{run['max_memory_allocated'] / 1e9:.2f} GB beside traced "
+          f"argument + temp {chosen['traced_bytes'] / 1e9:.2f} GB and "
+          f"planned {chosen['planned_bytes'] / 1e9:.2f} GB (measured / "
+          f"planned {run['max_memory_allocated'] / chosen['planned_bytes']:.3f}"
+          f"); {ms:.1f} ms a step (steps "
+          f"{[round(t, 1) for t in run['step_ms']]}) beside the roofline "
+          f"compute term {row['t_compute_ms']:.1f} ms. The fake group's "
+          f"collectives move no data, so the loss of this run is not a "
+          f"number to check; its footprint and local kernels are real.",
+          flush=True)
+    return row
+
+
+def lm_dryrun_child(out_path):
+    """The ``[lm-dryrun]`` phase's work, in a process of its own (a
+    process group belongs to the whole process): (a) the knob walk,
+    (b) the dry-run cells, (c) the confirmed rung; its numbers to
+    ``out_path``."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import release_mesh
+    dev = torch.device("cuda", 0)
+    counters = _dryrun_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = {"walk": _autoshard_walk()}
+    rec_dir = os.path.join(os.path.dirname(out_path), "records")
+    records = {}
+    for arch, shape, mesh_kind, auto in LM_DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, mesh_kind, auto=auto,
+                              out_dir=rec_dir, verbose=False, device=dev)
+        _require(rec["status"] == "ok",
+                 f"[lm-dryrun] {arch} x {shape} x {mesh_kind}: "
+                 f"{rec.get('error')}\n{rec.get('traceback')}")
+        _print_cell(rec)
+        records[(arch, shape, mesh_kind)] = rec
+    out["cells"] = list(records.values())
+    out["confirm"] = _confirm_rung(dev, out["walk"], records, rec_dir)
+    release_mesh()
+    out["launches"] = {n: c.launches for n, c in counters.items()}
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+
+
+def phase_lm_dryrun():
+    """The sharded dry run (``[lm-dryrun]``) in a child process; its
+    lines print here, and every kernel's count from its run (none is on
+    this path) comes back."""
+    work = os.path.join(HERE, "build", "lm_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out_path = os.path.join(work, "out.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--lm-dryrun-child",
+           out_path]
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "child.log"), "w") as log:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=LM_DRYRUN_TIMEOUT)
+        log.write(proc.stdout)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[lm-dryrun]"):
+            print(line, flush=True)
+    _require(proc.returncode == 0,
+             f"[lm-dryrun] the child exited {proc.returncode}: "
+             f"{proc.stdout[-3000:]}")
+    with open(out_path) as f:
+        out = json.load(f)
+    _require(all(r["status"] == "ok" for r in out["cells"])
+             and len(out["cells"]) == len(LM_DRYRUN_CELLS),
+             "[lm-dryrun] a traced cell is not ok")
+    _require(not any(out["launches"].values()),
+             f"[lm-dryrun] kernels launched on the dry-run path: "
+             f"{out['launches']}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[lm-dryrun] {out['phase_s']:.1f} s (the child's work "
+          f"{out['seconds']:.1f} s); kernel launches on the dry-run path: "
+          f"{out['launches']}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
     ap.add_argument("--kill-resume-child", nargs=2, metavar=("ROOT", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--lm-train-child", metavar="ROOT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--lm-dryrun-child", metavar="OUT",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3387,6 +3681,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.lm_train_child:
         _lm_train_child(args.lm_train_child)
+        return 0
+    if args.lm_dryrun_child:
+        lm_dryrun_child(args.lm_dryrun_child)
         return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3422,6 +3719,7 @@ def main(argv=None) -> int:
     fleet_times = phase_fleet_times(dev)
     lm_serve = phase_lm_serve(dev)
     lm_train = phase_lm_train(dev, table)
+    lm_dryrun = phase_lm_dryrun()
 
     kernels = []
     for k in table:
@@ -3434,6 +3732,7 @@ def main(argv=None) -> int:
             "service_launches": service["launches"][k["name"]],
             "soc_launches": soc["launches"][k["name"]],
             "lm_train_launches": lm_train["launches"][k["name"]],
+            "lm_dryrun_launches": lm_dryrun["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3458,6 +3757,7 @@ def main(argv=None) -> int:
             "service_launches": service["launches"][k["name"]],
             "soc_launches": soc["launches"][k["name"]],
             "lm_train_launches": lm_train["launches"][k["name"]],
+            "lm_dryrun_launches": lm_dryrun["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -3489,7 +3789,7 @@ def main(argv=None) -> int:
                        "kill_resume": kill_resume,
                        "pricing": pricing, "times": times,
                        "fleet_times": fleet_times, "lm_serve": lm_serve,
-                       "lm_train": lm_train},
+                       "lm_train": lm_train, "lm_dryrun": lm_dryrun},
                       f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -223,7 +223,8 @@ class PersistentOracleCache:
     last ``flush_every - 1`` points — they are simply re-invoked on
     resume — and the ledger flushes the remainder when a session
     completes.  Set ``flush_every=1`` for per-invocation durability.
-    Each flush keeps the newest ``KEEP_STEPS`` steps on disk.
+    Each flush keeps the newest ``keep`` steps on disk (default
+    ``KEEP_STEPS``).
 
     ``root=None`` keeps the cache purely in memory (no store behind it)
     — what a :class:`SharedOracle` pool uses when the service has no
@@ -242,13 +243,14 @@ class PersistentOracleCache:
     KEEP_STEPS = 2
 
     def __init__(self, root: Optional[str] = None, *, flush_every: int = 16,
-                 max_entries: Optional[int] = None,
+                 keep: int = KEEP_STEPS, max_entries: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None, name: str = ""):
         if max_entries is not None and max_entries < 1:
             raise ValueError(f"max_entries must be >= 1, got {max_entries}")
         self.root = root
         self.name = name
         self.flush_every = max(1, flush_every)
+        self.keep = max(1, keep)
         self.max_entries = max_entries
         # traffic counters live in a metrics registry (lock-consistent by
         # construction); the bare-int names are read-only properties below
@@ -312,7 +314,7 @@ class PersistentOracleCache:
                    {"n_entries": np.asarray(len(payload))},
                    extra={"entries": payload})
         self._dirty = 0
-        for old in store.list_steps(self.root)[:-self.KEEP_STEPS]:
+        for old in store.list_steps(self.root)[:-self.keep]:
             shutil.rmtree(os.path.join(self.root, f"step_{old:08d}"),
                           ignore_errors=True)
 

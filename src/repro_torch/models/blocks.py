@@ -18,6 +18,7 @@ loop), and KV-cache decode.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Tuple
@@ -27,7 +28,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import constrain_attn_qkv
+from ..dist.sharding import (batch_heads_placements, batch_only,
+                              constrain_attn_qkv, constrain_residual,
+                              gather_grad_unless_divides,
+                              gather_unless_divides, is_dtensor, local_call,
+                              summed_placements)
 from ..utils import leaves_with_paths, resolve_device
 
 __all__ = [
@@ -35,7 +40,7 @@ __all__ = [
     "init_mlp", "apply_mlp", "init_moe", "apply_moe",
     "rope", "mrope", "make_positions", "softcap",
     "attention_core", "Params", "Leaf", "LMModule", "stack_spec",
-    "layer_params", "torch_dtype", "masked_ce",
+    "layer_params", "torch_dtype", "masked_ce", "ce_sum", "embed_lookup",
 ]
 
 Params = Dict[str, Any]
@@ -174,7 +179,7 @@ class LMModule(ParamTree):
         """float32 logits of the final-normed hidden states: tied to the
         embedding or through ``head``, soft-capped."""
         cfg = self.cfg
-        h = apply_norm(params["final_norm"], h, cfg.norm_kind)
+        h = batch_only(apply_norm(params["final_norm"], h, cfg.norm_kind))
         w = params["embed"].T if cfg.tie_embeddings else params["head"]
         return softcap((h @ w.to(h.dtype)).float(), cfg.logit_softcap)
 
@@ -194,12 +199,54 @@ class LMModule(ParamTree):
         return self
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a DTensor each rank looks up its batch rows
+    in its own rows of the table (a vocab-parallel embedding: tokens
+    outside them give zeros, summed across the ranks that split the
+    vocabulary)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    row, _ = batch_heads_placements(mesh, tokens.shape[0], ())
+    vocab = [i for i, q in enumerate(table.placements)
+             if q.is_shard() and q.dim == 0]
+    tab_pl = tuple(Shard(0) if i in vocab else Replicate()
+                   for i in range(mesh.ndim))
+    out_pl = tuple(Partial() if i in vocab else row[i]
+                   for i in range(mesh.ndim))
+    part = 0
+    coord = mesh.get_coordinate()
+    for i in vocab:
+        part = part * mesh.size(i) + coord[i]
+
+    def body(tab, tok):
+        n = tab.shape[0]
+        idx = tok.long() - part * n
+        ok = (idx >= 0) & (idx < n)
+        return tab[torch.clamp(idx, 0, n - 1)] * ok[..., None].to(tab.dtype)
+
+    return local_call(body, mesh, (table, tokens), (tab_pl, row), out_pl)
+
+
+def ce_sum(logits: torch.Tensor, targets: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Sum of next-token CE over the positions ``mask`` keeps.  On a
+    DTensor each rank sums its batch rows over the whole vocabulary."""
+    if is_dtensor(logits):
+        mesh = logits.device_mesh
+        row, _ = batch_heads_placements(mesh, logits.shape[0], ())
+        return local_call(ce_sum, mesh, (logits, targets, mask),
+                          (row, row, row), summed_placements(row))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
 def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE over the positions ``mask`` keeps."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
-    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce_sum(logits, targets, mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ----------------------------------------------------------------------
@@ -326,8 +373,18 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and softmax in float32 whatever the model dtype (q is scaled in its
     own dtype first, as the JAX package scales it).  ``kv_chunk`` > 0
     switches to the online-softmax streaming form (exact, bounded
-    memory).
+    memory).  On DTensors the body runs on each rank's batch rows and
+    heads (:func:`~..dist.sharding.batch_heads_placements`).
     """
+    if is_dtensor(q) or is_dtensor(k):
+        mesh = (q if is_dtensor(q) else k).device_mesh
+        row, head = batch_heads_placements(mesh, q.shape[0],
+                                           (q.shape[2], k.shape[2]))
+        body = functools.partial(attention_core, causal=causal,
+                                 window=window, attn_cap=attn_cap,
+                                 kv_chunk=kv_chunk)
+        return local_call(body, mesh, (q, k, v, q_pos, kv_pos),
+                          (head, head, head, row, row), head)
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -399,19 +456,20 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    x = batch_only(x)
 
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, H, hd)
+    q = gather_unless_divides(q, 2, H).reshape(B, S, H, hd)
 
     if kv is None:
         k = x @ p["wk"]
         v = x @ p["wv"]
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
-        k = k.reshape(B, S, K, hd)
-        v = v.reshape(B, S, K, hd)
+        k = gather_unless_divides(k, 2, K).reshape(B, S, K, hd)
+        v = gather_unless_divides(v, 2, K).reshape(B, S, K, hd)
         if cfg.mrope and positions.ndim == 3:
             q = mrope(q, positions, cfg.rope_theta)
             k = mrope(k, positions, cfg.rope_theta)
@@ -450,7 +508,11 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = constrain_attn_qkv(q, k, v)
     o = attention_core(q, k, v, pos2d, kv_pos, causal=causal, window=window,
                        attn_cap=cfg.attn_softcap, kv_chunk=kv_chunk)
-    out = o.reshape(B, S, H * hd) @ p["wo"]
+    # the row-parallel product's partial sums meet the residual stream
+    # here (Megatron's all-reduce; a reduce-scatter under sequence
+    # parallelism); the identity on one device
+    o = gather_grad_unless_divides(o.reshape(B, S, H * hd), 2, H)
+    out = constrain_residual(o @ p["wo"])
     return out, new_cache
 
 
@@ -471,14 +533,16 @@ def init_mlp(cfg: ModelConfig, dtype, d_ff: Optional[int] = None) -> Params:
 
 
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = batch_only(x)
     if cfg.mlp_kind == "silu_gated":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    h = x @ p["w_up"]
-    if cfg.mlp_kind == "sq_relu":
-        h = torch.square(F.relu(h))
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
-        h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default
-    return h @ p["w_down"]
+        h = x @ p["w_up"]
+        if cfg.mlp_kind == "sq_relu":
+            h = torch.square(F.relu(h))
+        else:
+            h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default
+    return constrain_residual(h @ p["w_down"])
 
 
 # ----------------------------------------------------------------------
@@ -511,6 +575,8 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor
     ``C = ceil(T k cf / E)`` are dropped.  Expert compute is a batched
     matmul (E, C, d) x (E, d, f).  Returns (y, aux_loss).
     """
+    if is_dtensor(x):
+        return _moe_rows(p, cfg, x)
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -560,3 +626,36 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor
     router_mean = probs.mean(dim=0)
     aux = E * (density * router_mean).sum()
     return y.reshape(B, S, d), aux
+
+
+def _moe_rows(p: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_moe` on a DTensor: each rank routes its own batch
+    rows over every expert (the expert weights gathered to it), with the
+    capacity of its rows; the aux loss is the mean over ranks."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    row, _ = batch_heads_placements(mesh, x.shape[0], ())
+    rep = (Replicate(),) * mesh.ndim
+    leaves = leaves_with_paths(p)
+    paths = [path for path, _ in leaves]
+
+    def body(x, *ws):
+        return apply_moe(_unflatten(paths, ws), cfg, x)
+
+    aux_pl = tuple(Partial("avg") if q.is_shard() else Replicate()
+                   for q in row)
+    return local_call(body, mesh, (x, *(w for _, w in leaves)),
+                      (row,) + (rep,) * len(leaves), (row, aux_pl))
+
+
+def _unflatten(paths, leaves) -> Params:
+    """The nested dict of ``'a/b'`` paths and their leaves."""
+    out: Params = {}
+    for path, leaf in zip(paths, leaves):
+        *outer, name = path.split("/")
+        node = out
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return out

@@ -14,11 +14,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import constrain_residual
+from ..dist.sharding import (batch_only, constrain_residual,
+                             gather_unless_divides)
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
-                     apply_mlp, apply_norm, init_attention, init_mlp,
-                     init_norm, make_positions, masked_ce,
+                     apply_mlp, apply_norm, embed_lookup, init_attention,
+                     init_mlp, init_norm, make_positions, masked_ce,
                      stack_spec, unstack_layers)
 
 __all__ = ["EncDecLM"]
@@ -91,10 +92,10 @@ class EncDecLM(LMModule):
         B, F, _ = enc.shape
         K, hd = cfg.n_kv_heads, cfg.hd()
         ca = params["dec_layers"]["cross_attn"]
-        ks = [(enc @ ca["wk"][i]).reshape(B, F, K, hd)
-              for i in range(cfg.n_layers)]
-        vs = [(enc @ ca["wv"][i]).reshape(B, F, K, hd)
-              for i in range(cfg.n_layers)]
+        ks = [gather_unless_divides(enc @ ca["wk"][i], 2, K)
+              .reshape(B, F, K, hd) for i in range(cfg.n_layers)]
+        vs = [gather_unless_divides(enc @ ca["wv"][i], 2, K)
+              .reshape(B, F, K, hd) for i in range(cfg.n_layers)]
         return torch.stack(ks), torch.stack(vs)
 
     def _dec_block(self, lp, x, positions, enc_pos, *, cross_kv,
@@ -122,7 +123,7 @@ class EncDecLM(LMModule):
         offset = 0 if cache_len is None else cache_len
         positions = make_positions(B, S, offset=offset, device=self.device)
         enc_pos = make_positions(B, n_frames, device=self.device)
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
         ck, cv = cross_kv
 
@@ -150,7 +151,7 @@ class EncDecLM(LMModule):
     def _logits(self, params, h):
         """Always tied to the embedding, never soft-capped."""
         cfg = self.cfg
-        h = apply_norm(params["final_norm"], h, cfg.norm_kind)
+        h = batch_only(apply_norm(params["final_norm"], h, cfg.norm_kind))
         return (h @ params["embed"].T.to(h.dtype)).float()
 
     # ------------------------------------------------------------------

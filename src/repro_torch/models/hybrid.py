@@ -20,8 +20,8 @@ from ..configs.base import ModelConfig
 from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
-                     apply_mlp, apply_norm, init_attention, init_mlp,
-                     init_norm, make_positions, masked_ce,
+                     apply_mlp, apply_norm, embed_lookup, init_attention,
+                     init_mlp, init_norm, make_positions, masked_ce,
                      stack_spec, unstack_layers)
 from .ssm import init_mamba, init_ssm_state, mamba_sequence, mamba_step
 from .ssm_lm import layer_state, store_states
@@ -120,7 +120,7 @@ class HybridLM(LMModule):
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
         B, S = tokens.shape
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         positions = make_positions(B, S, device=self.device)
         kv_chunk = 1024 if S >= 16384 else 0
         h = self._forward(params, x, positions, self._stacked_states(B),
@@ -147,7 +147,7 @@ class HybridLM(LMModule):
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = max_len or S
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         positions = make_positions(B, S, device=self.device)
         cache = self.init_cache(B, max_len)
         kv_chunk = 1024 if S >= 16384 else 0
@@ -166,7 +166,7 @@ class HybridLM(LMModule):
         pos = int(cache["len"])
         positions = torch.full((B, 1), pos, dtype=torch.long,
                                device=self.device)
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         h = self._forward(params, x, positions, cache, caches=cache,
                           cache_len=pos, step=True)
         logits = self._logits(params, h)

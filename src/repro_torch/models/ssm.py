@@ -2,7 +2,8 @@
 
 The JAX package's ``models/ssm.py`` in PyTorch: the chunked SSD dual
 form for training/prefill (quadratic within a chunk, linear across
-chunks; a loop over chunks in place of its ``lax.scan``) and the
+chunks: every chunk's own terms at once, then a loop over chunks for
+the carried state in place of its ``lax.scan``) and the
 O(1)-per-token recurrence for decode.  Plain PyTorch, as the JAX
 package's models compute it outside any Pallas kernel; the CUDA SSD
 scan (``repro_torch.kernels.ssd_scan``) is timed against
@@ -20,6 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import (batch_heads_placements, batch_only,
+                             constrain_residual, gather_grad_unless_divides,
+                             gather_unless_divides, is_dtensor, local_call)
 from .blocks import Leaf, Params, _dense_init, apply_norm
 
 __all__ = ["init_mamba", "mamba_sequence", "mamba_step", "init_ssm_state"]
@@ -89,8 +93,26 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt: (B, S, H)      positive step sizes
     A:  (H,)           negative decay rates
     Bm, Cm: (B, S, N)  input/output projections (G=1, shared over heads)
-    Returns (y (B,S,H,P) float32, h_final (B,H,P,N) float32).
+    Returns (y (B,S,H,P) float32, h_final (B,H,P,N) float32).  On
+    DTensors each rank scans its batch rows and, where 'model' divides
+    H, its heads.
     """
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        row, head = batch_heads_placements(mesh, x.shape[0], (x.shape[2],))
+        a_pl = tuple(Shard(0) if p.is_shard() and p.dim == 2
+                     else Replicate() for p in head)
+        state_pl = tuple(Shard(1) if p.is_shard() and p.dim == 2 else p
+                         for p in head)
+
+        def body(x, dt, A, Bm, Cm, h0):
+            return _ssd_chunked(x, dt, A, Bm, Cm, chunk, h0)
+
+        return local_call(body, mesh, (x, dt, A, Bm, Cm, h0),
+                          (head, head, a_pl, row, row,
+                           None if h0 is None else state_pl),
+                          (head, state_pl))
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -105,38 +127,42 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     def chunks(t):
         return t.reshape((Bsz, n_chunks, Q) + t.shape[2:])
 
-    xc, dtc = chunks(x.float()), chunks(dt)
-    Bc, Cc = chunks(Bm.float()), chunks(Cm.float())
+    xc, dtc = chunks(x.float()), chunks(dt)         # (B,c,Q,H,P), (B,c,Q,H)
+    Bc, Cc = chunks(Bm.float()), chunks(Cm.float())  # (B,c,Q,N)
     a = dtc * A                                     # (B, c, Q, H) log-decay
     cum = torch.cumsum(a, dim=2)                    # within-chunk cumsum
 
+    # every chunk's own terms at once; only the carried state is a loop
+    iq = torch.arange(Q, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    # decay matrix L[i, j] = exp(cum_i - cum_j) for i >= j else 0.
+    # Mask BEFORE exp: masked entries have diff > 0 and overflow to
+    # inf, and where(c, inf, 0) poisons the backward with 0*inf=NaN.
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,c,Q,Q,H)
+    L = torch.exp(torch.where(causal, diff, -1e30))
+    # intra-chunk: scores (B,c,Q,Q) from C_i . B_j; weight by L and dt_j
+    s = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    w = s[..., None] * L * dtc[:, :, None, :, :]             # (B,c,Q,Q,H)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    # each chunk's state increment: sum_j exp(cum_Q - cum_j) dt_j B_j x_j
+    total = cum[:, :, -1, :]                                 # (B,c,H)
+    rem = torch.exp(total[:, :, None, :] - cum)              # (B,c,Q,H)
+    contrib = torch.einsum("bcjh,bcjn,bcjhp->bchpn", rem * dtc, Bc, xc)
+    decays = torch.exp(total)[..., None, None]               # (B,c,H,1,1)
+
+    # the carried state: h' = exp(sum a) h + increment, chunk by chunk
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
-    iq = torch.arange(Q, device=x.device)
-    causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
-    ys = []
-    for c in range(n_chunks):
-        xq, dtq, bq, cq, cumq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], \
-            cum[:, c]
-        # decay matrix L[i, j] = exp(cum_i - cum_j) for i >= j else 0.
-        # Mask BEFORE exp: masked entries have diff > 0 and overflow to
-        # inf, and where(c, inf, 0) poisons the backward with 0*inf=NaN.
-        diff = cumq[:, :, None, :] - cumq[:, None, :, :]     # (B,Q,Q,H)
-        L = torch.exp(torch.where(causal, diff, -1e30))
-        # intra-chunk: scores (B,Q,Q) from C_i . B_j; weight by L and dt_j
-        s = torch.einsum("bin,bjn->bij", cq, bq)             # (B,Q,Q)
-        w = s[:, :, :, None] * L * dtq[:, None, :, :]        # (B,Q,Q,H)
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
-        # inter-chunk: contribution of the carried state
-        decay_in = torch.exp(cumq)                           # (B,Q,H)
-        y_inter = torch.einsum("bin,bhpn,bih->bihp", cq, h, decay_in)
-        ys.append(y_intra + y_inter)
-        # state update: h' = exp(sum a) h + sum_j exp(cum_Q - cum_j) dt_j B_j x_j
-        total = cumq[:, -1, :]                               # (B,H)
-        rem = torch.exp(total[:, None, :] - cumq)            # (B,Q,H)
-        contrib = torch.einsum("bjh,bjn,bjhp->bhpn", rem * dtq, bq, xq)
-        h = torch.exp(total)[:, :, None, None] * h + contrib
-    y = torch.stack(ys, dim=1).reshape(Bsz, n_chunks * Q, H, P)
+    h_in = []
+    for d, inc in zip(torch.unbind(decays, 1), torch.unbind(contrib, 1)):
+        h_in.append(h)
+        h = d * h + inc
+    # inter-chunk: contribution of the state each chunk starts from
+    decay_in = torch.exp(cum)                                # (B,c,Q,H)
+    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", Cc,
+                           torch.stack(h_in, dim=1), decay_in)
+    ys = y_intra + y_inter
+    y = ys.reshape(Bsz, n_chunks * Q, H, P)
     return y[:, :S], h
 
 
@@ -149,21 +175,21 @@ def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
     """
     B, S, d = u.shape
     di, N, H, P = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads(), cfg.ssm_head_dim
-    proj = u @ p["in_proj"]
+    proj = batch_only(u) @ p["in_proj"]
     z, xbc, dt = _split_proj(cfg, proj)
     conv_state = state["conv"] if state else None
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
     A = -torch.exp(p["A_log"])                                    # (H,)
-    xh = xs.reshape(B, S, H, P)
+    xh = gather_unless_divides(xs, 2, H).reshape(B, S, H, P)
     h0 = state["ssm"] if state else None
     y, h_fin = _ssd_chunked(xh.float(), dt, A, Bm, Cm, cfg.ssm_chunk, h0)
     y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, di).to(u.dtype)
+    y = gather_grad_unless_divides(y.reshape(B, S, di), 2, H).to(u.dtype)
     y = y * F.silu(z)
     y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
-    out = y @ p["out_proj"]
+    out = constrain_residual(y @ p["out_proj"])
     return out, {"ssm": h_fin, "conv": conv_state}
 
 
@@ -184,7 +210,7 @@ def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
     xs, Bm, Cm = torch.split(xbc1, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,H)
     A = -torch.exp(p["A_log"])
-    xh = xs.reshape(B, H, P).float()
+    xh = gather_unless_divides(xs, 1, H).reshape(B, H, P).float()
     h = state["ssm"]                                              # (B,H,P,N)
     decay = torch.exp(dt * A)[:, :, None, None]
     h_new = h * decay + torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh)
@@ -192,5 +218,5 @@ def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(B, di).to(u.dtype) * F.silu(z)
     y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
-    out = (y @ p["out_proj"])[:, None, :]
+    out = constrain_residual((y @ p["out_proj"])[:, None, :])
     return out, {"ssm": h_new, "conv": new_conv}

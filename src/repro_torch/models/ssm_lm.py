@@ -9,8 +9,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
-from .blocks import (LMModule, Params, _dense_init, apply_norm, init_norm,
-                     masked_ce, stack_spec, unstack_layers)
+from .blocks import (LMModule, Params, _dense_init, apply_norm,
+                     embed_lookup, init_norm, masked_ce, stack_spec,
+                     unstack_layers)
 from .ssm import init_mamba, init_ssm_state, mamba_sequence, mamba_step
 
 __all__ = ["MambaLM", "layer_state", "store_states"]
@@ -77,7 +78,7 @@ class MambaLM(LMModule):
         if mask is None:
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         h, _ = self._forward(params, x, self._stacked_states(tokens.shape[0]))
         ce = masked_ce(self._logits(params, h), targets, mask)
         return ce, {"ce": ce}
@@ -99,7 +100,7 @@ class MambaLM(LMModule):
         params = self.params()
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         cache = self.init_cache(B, S)
         h, new_states = self._forward(params, x, cache)
         for i, st in enumerate(new_states):
@@ -114,7 +115,7 @@ class MambaLM(LMModule):
         updated in place; the returned dict holds them with ``len`` + 1."""
         cfg = self.cfg
         params = self.params()
-        x = params["embed"][tokens].to(self.dtype)
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
         for i, lp in enumerate(unstack_layers(params["layers"])):
             h = apply_norm(lp["ln"], x, cfg.norm_kind)
             y, st_new = mamba_step(lp["mamba"], cfg, h, layer_state(cache, i))

@@ -25,9 +25,9 @@ from ..configs.base import ModelConfig
 from ..dist.sharding import constrain_residual
 from ..train.remat import maybe_remat
 from .blocks import (LMModule, Params, _dense_init, apply_attention,
-                     apply_mlp, apply_moe, apply_norm, init_attention,
-                     init_mlp, init_moe, init_norm, make_positions,
-                     stack_spec, unstack_layers)
+                     apply_mlp, apply_moe, apply_norm, ce_sum, embed_lookup,
+                     init_attention, init_mlp, init_moe, init_norm,
+                     make_positions, stack_spec, unstack_layers)
 
 __all__ = ["DecoderLM"]
 
@@ -149,7 +149,7 @@ class DecoderLM(LMModule):
         return x, aux
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(self.dtype)
+        return embed_lookup(params["embed"], tokens).to(self.dtype)
 
     def _positions(self, batch: Dict[str, Any], B: int, S: int):
         cfg = self.cfg
@@ -288,10 +288,7 @@ def _chunked_ce(logits_fn: Callable, h: torch.Tensor, targets: torch.Tensor,
     denom = torch.clamp(mask.sum(), min=1.0)
 
     def ce_of(hh, tt, mm):
-        lg = logits_fn(hh)                             # (B, c, V) f32
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = lg.gather(-1, tt[..., None].long())[..., 0]
-        return ((lse - gold) * mm).sum()
+        return ce_sum(logits_fn(hh), tt, mm)           # (B, c, V) f32
 
     if not chunked or S % _LOSS_CHUNK or S <= _LOSS_CHUNK:
         return ce_of(h, targets, mask), denom

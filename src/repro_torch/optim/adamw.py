@@ -22,6 +22,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import is_dtensor
 from ..utils import leaves_with_paths, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates",
@@ -50,7 +51,8 @@ class OptState(NamedTuple):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def step0(params: Any) -> torch.Tensor:
@@ -69,13 +71,19 @@ def init_opt(params: Any) -> OptState:
 
 def rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` as (rows, last dim) (a view where ``t`` is contiguous); a
-    0-d tensor as (1, 1)."""
+    0-d tensor as (1, 1).  A DTensor stays as it is: reshaping a sharded
+    dim would gather it."""
+    if is_dtensor(t):
+        return t
     return t.reshape(-1, t.shape[-1] if t.ndim else 1)
 
 
-def row_blocks(t: torch.Tensor) -> Iterator[slice]:
+def row_blocks(t: torch.Tensor) -> Iterator[Any]:
     """Slices of ``rows(t)``'s rows, each at most ``BLOCK_ELEMS``
-    elements (one row at least)."""
+    elements (one row at least); a DTensor is one block (``...``), each
+    rank updating its own shard."""
+    if is_dtensor(t):
+        return iter((Ellipsis,))
     n_rows, n = rows(t).shape
     per = max(1, BLOCK_ELEMS // max(n, 1))
     return (slice(i, min(i + per, n_rows)) for i in range(0, n_rows, per))
@@ -162,6 +170,7 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
             vb = cfg.b2 * v2[b] + (1.0 - cfg.b2) * torch.square(gb)
             delta = (mb / b1c) / (torch.sqrt(vb / b2c) + cfg.eps)
             pf = p2[b].float()
-            p2[b] = pf - lr * (delta + cfg.weight_decay * wd * pf)
-            m2[b], v2[b] = mb, vb
+            p2[b].copy_(pf - lr * (delta + cfg.weight_decay * wd * pf))
+            m2[b].copy_(mb)
+            v2[b].copy_(vb)
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm}

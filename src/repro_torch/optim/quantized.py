@@ -18,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..dist.sharding import is_dtensor
 from ..utils import tree_map
 from .adamw import (AdamWConfig, _leaves, _require_contiguous,
                     bias_corrections, clip_scale, global_norm, row_blocks,
@@ -89,7 +90,8 @@ def apply_updates_q8(cfg: AdamWConfig, params: Any, grads: Any,
             _update_q8(cfg, p, g, mq, ms, vq, vs, scale, b1c, b2c, lr)
             continue
         p2, g2, mq2, vq2 = rows(p), rows(g), rows(mq), rows(vq)
-        ms2, vs2 = ms.reshape(-1), vs.reshape(-1)
+        ms2, vs2 = ((ms, vs) if is_dtensor(p)
+                    else (ms.reshape(-1), vs.reshape(-1)))
         for b in row_blocks(p):
             _update_q8(cfg, p2[b], g2[b], mq2[b], ms2[b], vq2[b], vs2[b],
                        scale, b1c, b2c, lr)

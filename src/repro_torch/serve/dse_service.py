@@ -170,8 +170,11 @@ class DSEService:
     run one :class:`~repro_torch.core.session.ExplorationSession` per
     query; sessions whose queries resolve to the same oracle pool share a
     :class:`~repro_torch.core.oracle.SharedOracle` (coalescing + cross-tenant
-    cache).  ``cache_root`` makes the caches durable (one subdirectory
-    per pool).
+    cache).  ``cache_entries`` LRU-bounds each pool's cache;
+    ``cache_root`` makes the caches durable (one subdirectory per
+    pool); ``verify_plans`` turns on the strict plan post-pass for
+    every tenant session; ``metrics`` is the registry the service
+    counts into and ``stats()`` embeds (a new one when None).
 
     Use as a context manager, or call :meth:`close` — queued and
     running queries complete first (``close(drain=False)`` abandons the
@@ -179,20 +182,25 @@ class DSEService:
     """
 
     def __init__(self, *, max_pending: int = 8, workers: int = 2,
+                 cache_entries: Optional[int] = None,
                  cache_root: Optional[str] = None,
                  flush_every: int = 16,
-                 tracer=None):
+                 verify_plans: bool = False,
+                 tracer=None,
+                 metrics: Optional[MetricsRegistry] = None):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.max_pending = max_pending
+        self.cache_entries = cache_entries
         self.cache_root = cache_root
         self.flush_every = flush_every
+        self.verify_plans = verify_plans
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # one registry for the whole service: the query counters below,
         # queue-wait/latency histograms, per-pool shared-oracle and cache
         # counters, and per-tenant ledger outcome counters all land here;
         # ``stats()`` embeds its snapshot
-        self.metrics = MetricsRegistry()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._submitted = self.metrics.counter("service.submitted")
         self._done = self.metrics.counter("service.done")
         self._failed = self.metrics.counter("service.failed")
@@ -294,6 +302,7 @@ class DSEService:
                         f"{self.cache_root}/{slug}")
                 cache = PersistentOracleCache(
                     root, flush_every=self.flush_every,
+                    max_entries=self.cache_entries,
                     metrics=self.metrics, name=slug)
                 tool = build_tool(query.app, query.backend,
                                   share_plm=query.share_plm,
@@ -353,7 +362,9 @@ class DSEService:
             with self.tracer.span("service.run", parent=handle._span,
                                   qid=handle.qid, tenant=tenant,
                                   pool=pool.slug):
-                session = build_query_session(handle.query, ledger=ledger)
+                session = build_query_session(
+                    handle.query, ledger=ledger,
+                    verify_plans=self.verify_plans)
                 result = session.run()
             with self._lock:
                 pool.front_sizes[f"delta={session.delta:g}"] = \

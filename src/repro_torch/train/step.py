@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..dist.compression import ef_compress_tree
+from ..dist.sharding import like_placements
 from ..optim import (AdamWConfig, apply_updates, apply_updates_q8,
                      warmup_cosine)
 from ..utils import tree_leaves, unflatten_like
@@ -95,14 +96,16 @@ def make_train_step(model, opt_cfg: AdamWConfig,
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return (loss.detach(), metrics), list(grads)
+        # a sharded gradient takes its parameter's placements (the
+        # data-parallel all-reduce); the identity on one device
+        return (loss.detach(), metrics), [like_placements(g, p)
+                                          for g, p in zip(grads, leaves)]
 
     def step(params, opt_state, batch):
         leaves = _model_leaves(model, params)
         if cfg.microbatches > 1:
             n = cfg.microbatches
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=acc_dt) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for mb in _split_microbatches(batch, n):
                 (mb_loss, _), g = grad_fn(leaves, params, mb)

@@ -59,14 +59,16 @@ def leaves_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
     NamedTuples in ``jax.tree_util``'s flattening order: dict keys
     sorted, sequences by index, a NamedTuple's fields in order and by
     name (as ``GetAttrKey`` names them: ``opt/step``, ``opt/mu/a``),
-    ``None`` empty; paths by :func:`keystr_path`."""
+    ``None`` empty; paths by :func:`keystr_path`.  Only a plain list or
+    tuple is a sequence: an instance of another tuple subclass (a
+    sharding spec) is a leaf, as in ``jax.tree_util``."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif _is_namedtuple(tree):
         items = list(zip(tree._fields, tree))
-    elif isinstance(tree, (list, tuple)):
+    elif type(tree) in (list, tuple):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
         return [(keystr_path(prefix), tree)]
@@ -90,7 +92,7 @@ def unflatten_like(like: Any, leaves: Iterator[Any]) -> Any:
         return {k: unflatten_like(like[k], leaves) for k in sorted(like)}
     if _is_namedtuple(like):
         return type(like)(*(unflatten_like(v, leaves) for v in like))
-    if isinstance(like, (list, tuple)):
+    if type(like) in (list, tuple):
         return type(like)(unflatten_like(v, leaves) for v in like)
     return next(leaves)
 

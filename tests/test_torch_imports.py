@@ -67,4 +67,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "checkpoint", "checkpoint.async_ckpt", "ft", "ft.elastic",
                  "ft.straggler", "ft.watchdog", "launch.train"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the sharded dry run and the knob walk
+    for name in ("dist.sharding", "launch.mesh", "launch.graph_analysis",
+                 "launch.dryrun", "launch.roofline", "core.autotune"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"

@@ -289,12 +289,13 @@ def test_obs001_flags_a_seeded_untraced_oracle(tmp_path, monkeypatch):
 
 
 def test_obs001_walks_the_port_s_oracle_modules():
-    """The port's oracle classes all report to the tracer; its autotune
-    module holds the pricing half only, with no ``evaluate_batch`` yet."""
+    """The port's oracle classes all report to the tracer, the autotune
+    module's ``XLAOracle`` (its ``evaluate_batch`` under a ``tool.batch``
+    span) among them."""
     import repro_torch.core.autotune as TA
     assert TL._OBS_ORACLE_MODULES == ("repro_torch.core.oracle",
                                       "repro_torch.core.autotune")
-    assert "evaluate_batch" not in open(TA.__file__).read()
+    assert "evaluate_batch" in vars(TA.XLAOracle)
     findings = []
     TL._lint_observability(findings)
     assert findings == []
