@@ -37,7 +37,7 @@ import numpy as np
 from ...configs import SHAPES, get_config
 from ...core.cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
                                  MeasurementStore, device_kind_of,
-                                 open_recording)
+                                 open_recording, record_meta)
 from ...core.knobs import KnobSpace
 from ...core.plm.planner import PLMPlanner
 from ...core.plm.units import UnitSystem, fit_unit_system
@@ -80,8 +80,9 @@ _FLEET_STAGES = {
 }
 
 
-_RECORD_HINT = ("record on the card: build_session('fleet', 'cuda', "
-                "mode='record')")
+_RECORD_HINT = ("record on the card: python -m "
+                "repro_torch.examples.fleet_cuda --record, or "
+                "build_session('fleet', 'cuda', mode='record')")
 
 
 def default_measurement_path(tile: int = 0) -> str:
@@ -256,16 +257,19 @@ def fleet_cuda_oracle(mode: str = "measure", *, device=None,
     """The measured fleet oracle: both kernels timed on ``device``
     (default: the CUDA card).  ``"record"`` and ``"replay"`` go through
     ``measurements`` or the recording at ``store_path`` (default:
-    :func:`default_measurement_path`).  Both stages have a kernel, so
-    no fallback tool is attached.  Remaining keywords flow to :class:`CudaOracle` (``timer``,
-    ``smem_budget``)."""
+    :func:`default_measurement_path`; record mode tags a fresh one with
+    the card's provenance and resumes an existing one, a replay takes
+    its device kind and budget from it).  Both stages have a kernel, so
+    no fallback tool is attached.  Remaining keywords flow to
+    :class:`CudaOracle` (``timer``, ``smem_budget``)."""
     components = fleet_cuda_components(device=device)
-    if device_kind is None:
+    if device_kind is None and mode != "replay":
         device_kind = device_kind_of(device)
     if measurements is None and mode in ("record", "replay"):
         measurements = open_recording(
             store_path or default_measurement_path(), mode=mode, tile=0,
-            device_kind=device_kind, flush_every=flush_every)
+            device_kind=device_kind, flush_every=flush_every,
+            meta=record_meta(mode, device))
     return CudaOracle(components, mode=mode, measurements=measurements,
                       device=device, device_kind=device_kind,
                       record_hint=_RECORD_HINT, **kwargs)

@@ -34,7 +34,7 @@ import torch
 
 from ...core.cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
                                  MeasurementStore, device_kind_of,
-                                 open_recording)
+                                 open_recording, record_meta)
 from ...core.hlsim import HLSTool
 from ...core.plm.units import UnitSystem, fit_unit_system
 from ...core.registry import App, build_session, get_app, register_app
@@ -58,8 +58,9 @@ _REPO_ROOT = os.path.abspath(
 # the tiles the WAMI kernels record at, one store file per tile; sessions
 # load only the native 128 unless the caller names more
 WAMI_RECORDED_TILES = (64, 128, 256)
-_RECORD_HINT = ("record on the card: build_session('wami', 'cuda', "
-                "mode='record', tiles=(N,))")
+_RECORD_HINT = ("record on the card: python -m "
+                "repro_torch.examples.wami_cuda --record --tile N, or "
+                "build_session('wami', 'cuda', mode='record', tiles=(N,))")
 
 # the stages with a CUDA kernel, in TMG order
 WAMI_CUDA_STAGES = ("debayer", "grayscale", "gradient", "steep_descent",
@@ -203,11 +204,12 @@ def wami_cuda_oracle(mode: str = "measure", *, tile: int = C.TILE,
     (default: the CUDA card), the 6x6 matrix stages priced by
     ``wami_hls_tool()``.  ``"record"`` and ``"replay"`` go through
     ``measurements`` or the recording at ``store_path`` (record mode
-    starts it when absent and flushes every ``flush_every`` timings).
-    Remaining keywords flow to :class:`CudaOracle` (``timer``,
-    ``smem_budget``)."""
+    starts it, tagged with the card's provenance, when absent, resumes
+    it otherwise, and flushes every ``flush_every`` timings; a replay
+    takes its device kind and budget from the recording).  Remaining
+    keywords flow to :class:`CudaOracle` (``timer``, ``smem_budget``)."""
     components = wami_cuda_components(tile, device)
-    if device_kind is None:
+    if device_kind is None and mode != "replay":
         device_kind = device_kind_of(device)
     if measurements is None and mode in ("record", "replay"):
         if store_path is None:
@@ -215,7 +217,8 @@ def wami_cuda_oracle(mode: str = "measure", *, tile: int = C.TILE,
                              f"store_path=")
         measurements = open_recording(store_path, mode=mode, tile=tile,
                                       device_kind=device_kind,
-                                      flush_every=flush_every)
+                                      flush_every=flush_every,
+                                      meta=record_meta(mode, device))
     return CudaOracle(components, mode=mode, measurements=measurements,
                       fallback=fallback or wami_hls_tool(),
                       device=device, device_kind=device_kind,

@@ -39,8 +39,10 @@ count, after one warm-up launch, with the host's issue time kept out
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import subprocess
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -61,6 +63,9 @@ __all__ = [
     "CudaOracle",
     "open_store",
     "open_recording",
+    "card_provenance",
+    "recorded_provenance",
+    "record_meta",
     "device_smem_budget",
     "device_time_s",
     "H100_SMEM_OPTIN_BYTES",
@@ -97,6 +102,42 @@ def device_smem_budget(device=None) -> int:
 def device_kind_of(device=None) -> str:
     """The recording tag of real-card measurements: the device name."""
     return torch.cuda.get_device_name(resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _nvidia_smi_line(index: int) -> str:
+    """``name, power.limit`` of the card at CUDA index ``index``, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints it (the index mapped through ``CUDA_VISIBLE_DEVICES``)."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+    if index < len(visible) and visible[index].strip().isdigit():
+        index = int(visible[index])
+    return lines[index].strip()
+
+
+def card_provenance(device=None) -> Dict[str, Any]:
+    """What a recording made on ``device`` (default: the CUDA card)
+    carries in its ``meta``: the card's name (the recording's device
+    kind), its power limit as ``nvidia-smi`` prints it, the opt-in shared
+    memory per block (the feasibility budget the walls were recorded
+    under), and the torch and CUDA versions.  Raises for a device that
+    is not a CUDA card: a recording's walls come from one."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"a recording's walls are timed on a CUDA card; "
+                         f"{str(dev)!r} is not one")
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return {"device_kind": device_kind_of(dev),
+            "power_limit": _nvidia_smi_line(index).rsplit(",", 1)[-1]
+            .strip(),
+            "smem_budget_bytes": device_smem_budget(dev),
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda}
 
 
 # one measurement lock per device, shared by every CudaOracle of the
@@ -259,6 +300,14 @@ class MeasurementStore:
             return str(kind)
         return "interpret" if self.meta.get("interpret", True) else "device"
 
+    @property
+    def smem_budget(self) -> Optional[int]:
+        """The shared-memory budget in bytes the walls were recorded
+        under (``meta["smem_budget_bytes"]``; None when untagged, as the
+        JAX package's interpret-mode recordings are)."""
+        budget = self.meta.get("smem_budget_bytes")
+        return None if budget is None else int(budget)
+
     @staticmethod
     def _key_str(key: MeasureKey) -> str:
         comp, ports, unrolls = key
@@ -400,6 +449,30 @@ class MeasurementSet:
         return len(self._stores)
 
 
+def recorded_provenance(measurements: MeasurementSet,
+                        device_kind: Optional[str] = None
+                        ) -> Tuple[str, Optional[int]]:
+    """(device kind, shared-memory budget or None) that a replay of
+    ``measurements`` prices under: the one device kind its recordings
+    are tagged with (or ``device_kind``), and the one budget the
+    recordings of that kind were made under.  Reads the recordings'
+    ``meta`` only, never the host's card; raises when the recordings
+    disagree."""
+    stores = measurements.stores()
+    if device_kind is None:
+        kinds = sorted({s.device_kind for s in stores})
+        if len(kinds) != 1:
+            raise ValueError(f"the recordings are tagged with device kinds "
+                             f"{kinds}; pass device_kind=")
+        device_kind = kinds[0]
+    budgets = {s.smem_budget for s in stores if s.device_kind == device_kind}
+    if len(budgets) > 1:
+        raise ValueError(f"the {device_kind!r} recordings were made under "
+                         f"shared-memory budgets {budgets}; pass "
+                         f"smem_budget=")
+    return device_kind, next(iter(budgets), None)
+
+
 class CudaOracle(OracleBatchMixin):
     """The measured synthesis oracle (SynthesisTool/Oracle protocols).
 
@@ -416,8 +489,11 @@ class CudaOracle(OracleBatchMixin):
     (``torch.cuda.get_device_name``); pass ``"interpret"`` to replay a
     recording made in Pallas interpret mode.  ``smem_budget`` is the
     feasibility budget in bytes; it defaults to the card's opt-in shared
-    memory per block.  ``device`` is the card the timings run on
-    (default ``"cuda"``).
+    memory per block.  A replay takes both defaults from the recordings'
+    ``meta`` instead (:func:`recorded_provenance`), never from the
+    host's card, so it runs where there is none; a recording that
+    carries no budget needs ``smem_budget=``.  ``device`` is the card
+    the timings run on (default ``"cuda"``).
 
     ``fallback`` prices components that have no kernel (e.g. the 6x6
     matrix stages of WAMI) through an analytical tool, so a mixed TMG
@@ -472,6 +548,17 @@ class CudaOracle(OracleBatchMixin):
                                              or len(measurements) == 0):
             raise ValueError(f"mode={mode!r} requires a non-empty "
                              f"MeasurementSet")
+        if mode == "replay" and (device_kind is None or smem_budget is None):
+            # a replay prices under what its recordings say, not the host
+            device_kind, recorded = recorded_provenance(measurements,
+                                                        device_kind)
+            if smem_budget is None:
+                if recorded is None:
+                    raise ValueError(
+                        f"the {device_kind!r} recordings carry no "
+                        f"shared-memory budget (meta 'smem_budget_bytes'); "
+                        f"pass smem_budget=")
+                smem_budget = recorded
         self.device = device
         self.device_kind = (device_kind if device_kind is not None
                             else device_kind_of(device))
@@ -719,27 +806,43 @@ class CudaOracle(OracleBatchMixin):
         return saved[0] if saved else None
 
 
-def open_store(path: str, *, mode: str, tile: int = 0, device_kind: str,
-               flush_every: int = 16) -> MeasurementStore:
+def open_store(path: str, *, mode: str, tile: int = 0,
+               device_kind: Optional[str],
+               flush_every: int = 16,
+               meta: Optional[Dict[str, Any]] = None) -> MeasurementStore:
     """One recording for a drive in ``mode``: load ``path`` when it
-    exists (replay always loads — a missing file should fail loudly),
-    otherwise start a fresh store tagged with ``tile`` and
-    ``device_kind`` for a record (or measure) campaign.  Record mode
-    autoflushes every ``flush_every`` timings; replay never writes."""
+    exists (replay always loads — a missing file should fail loudly;
+    record mode resumes it, keeping its ``meta``), otherwise start a
+    fresh store tagged with ``tile`` and ``device_kind`` (and ``meta``'s
+    further keys: :func:`card_provenance` on the card) for a record (or
+    measure) campaign.  Record mode autoflushes every ``flush_every``
+    timings; replay never writes."""
     autoflush = flush_every if mode == "record" else 0
     if mode == "replay" or os.path.exists(path):
         return MeasurementStore.load(path, flush_every=autoflush)
     return MeasurementStore(path,
-                            meta={"tile": tile, "interpret": False,
+                            meta={**(meta or {}), "tile": tile,
+                                  "interpret": False,
                                   "device_kind": device_kind},
                             flush_every=autoflush)
 
 
 def open_recording(path: str, *, mode: str, tile: int = 0,
-                   device_kind: str,
-                   flush_every: int = 16) -> MeasurementSet:
+                   device_kind: Optional[str],
+                   flush_every: int = 16,
+                   meta: Optional[Dict[str, Any]] = None) -> MeasurementSet:
     """The record/replay bootstrap: :func:`open_store`, wrapped as a
     single-recording :class:`MeasurementSet`."""
     return MeasurementSet.from_store(
         open_store(path, mode=mode, tile=tile, device_kind=device_kind,
-                   flush_every=flush_every), tile=tile)
+                   flush_every=flush_every, meta=meta), tile=tile)
+
+
+def record_meta(mode: str, device=None) -> Optional[Dict[str, Any]]:
+    """The ``meta`` a fresh recording of a drive in ``mode`` on
+    ``device`` starts with: the card's provenance when it records on a
+    CUDA card, nothing otherwise (a timer standing in for the card on
+    the CPU)."""
+    if mode != "record" or resolve_device(device).type != "cuda":
+        return None
+    return card_provenance(device)

@@ -40,7 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .cuda_oracle import (CudaKernelSpec, CudaOracle, MeasurementSet,
                           MeasurementStore, MissingMeasurementError,
-                          device_kind_of, open_store)
+                          device_kind_of, open_store, record_meta,
+                          recorded_provenance)
 from .knobs import KnobSpace
 from .session import DSEQuery, ExplorationSession
 from .tmg import TMG
@@ -122,18 +123,20 @@ class App:
 
     def measurement_set(self, tiles: Optional[Sequence[int]] = None, *,
                         mode: str = "replay",
-                        device_kind: str = "") -> MeasurementSet:
+                        device_kind: Optional[str] = "",
+                        meta: Optional[Dict[str, Any]] = None
+                        ) -> MeasurementSet:
         """The app's recordings for ``tiles`` (default: the app's
         ``default_tiles``) as one routing set (:func:`open_store`):
         replay loads every file (a missing one raises); record and
-        measure mode start a fresh store, tagged with its tile and
-        ``device_kind``, where a file is missing."""
+        measure mode start a fresh store, tagged with its tile,
+        ``device_kind`` and ``meta``, where a file is missing."""
         if self.measurement_path is None:
             raise ValueError(f"app {self.name!r} has no recordings")
         out = MeasurementSet()
         for t in (tiles if tiles is not None else self.default_tiles):
             out.add(open_store(self.measurement_path(t), mode=mode, tile=t,
-                               device_kind=device_kind))
+                               device_kind=device_kind, meta=meta))
         return out
 
 
@@ -290,8 +293,12 @@ def _cuda_tool(app: App, *, share_plm: bool = False,
     (default: the CUDA card) through a :class:`MeasurementSet` of its
     recordings at ``tiles``, the analytical tool elsewhere.
 
-    ``device_kind`` (default: the card's name) keys the recordings:
-    pass ``"interpret"`` to replay ones made in Pallas interpret mode.
+    ``device_kind`` (default: the card's name; in a replay, the one the
+    recordings are tagged with) keys the recordings: pass
+    ``"interpret"`` to replay ones made in Pallas interpret mode.  A
+    record-mode drive on the card tags a fresh recording with the card's
+    provenance (:func:`~repro_torch.core.cuda_oracle.card_provenance`);
+    a replay prices under the budget the recordings carry.
     Plain drives keep the strict ``missing="error"`` semantics over the
     raw analytical tool; ``share_plm`` drives use the unit-calibrated
     fallback, fitted from the native tile's recording of this device
@@ -310,10 +317,13 @@ def _cuda_tool(app: App, *, share_plm: bool = False,
         raise ValueError(f"app {app.name!r} has no CUDA kernel specs; "
                          f"the measured backend is unsupported "
                          f"(supported apps: {supported})")
-    if device_kind is None:
+    if device_kind is None and mode != "replay":
         device_kind = device_kind_of(device)
     measurements = app.measurement_set(tiles, mode=mode,
-                                       device_kind=device_kind)
+                                       device_kind=device_kind,
+                                       meta=record_meta(mode, device))
+    if device_kind is None:
+        device_kind = recorded_provenance(measurements)[0]
     if share_plm or missing == "fallback":
         missing = "fallback"
         if app.calibrated_fallback is not None:

@@ -71,4 +71,11 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("dist.sharding", "launch.mesh", "launch.graph_analysis",
                  "launch.dryrun", "launch.roofline", "core.autotune"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the front doors: one module per script of the JAX package's examples
+    for name in ("examples", "examples._cli", "examples.wami_cuda",
+                 "examples.fleet_cuda", "examples.wami_plm",
+                 "examples.wami_dse", "examples.autoshard",
+                 "examples.quickstart", "examples.serve_lm",
+                 "examples.train_lm"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"

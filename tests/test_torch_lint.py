@@ -3,10 +3,10 @@ registry.
 
   * the reference's seeded broken app (tests/test_analysis.py), rebuilt
     with the port's ``App``, gives the same findings in both packages;
-  * on the port's registry the lint reports exactly one REG003 per
-    declared card recording (WAMI tiles 64, 128, 256; the fleet's one
-    file), none of which is committed yet; pointed at copies of the
-    reference's interpret-mode recordings it is clean;
+  * on the port's registry, with every declared card recording
+    committed (WAMI tiles 64, 128, 256; the fleet's one file), the lint
+    finds nothing; pointed at copies of the reference's interpret-mode
+    recordings it is clean;
   * SPEC003 checks the kernel specs' double-buffered footprints against
     an H100's 232,448 bytes of opt-in shared memory per block;
   * OBS001 on a seeded oracle class, SOC001's provenance rule, and the
@@ -39,12 +39,12 @@ from repro_torch.kernels.flash_attention import H100_SMEM_OPTIN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEASUREMENTS = os.path.join(REPO, "artifacts", "measurements")
-# the four findings of the port's registry while no card recording is
-# committed: (rule, app, subject)
-UNRECORDED = [("REG003", "fleet", "tile=0"),
-              ("REG003", "wami", "tile=128"),
-              ("REG003", "wami", "tile=256"),
-              ("REG003", "wami", "tile=64")]
+# the findings of the port's registry, (rule, app, subject): none, every
+# declared card recording committed
+UNRECORDED = []
+# the card recordings the apps declare
+CARD_RECORDINGS = ["fleet_cuda.json", "wami_cuda_tile128.json",
+                   "wami_cuda_tile256.json", "wami_cuda_tile64.json"]
 
 
 def _keys(findings):
@@ -142,17 +142,23 @@ def test_lint_finding_is_the_reference_s_record():
 # the port's registry
 # ----------------------------------------------------------------------
 def test_registry_lints_to_the_four_unrecorded_tiles():
-    """Every declared card recording is missing until one is committed;
-    nothing else is found (no SPEC003 against the card's budget, no
-    REG002: both apps' parity cases build on the CPU)."""
+    """Every declared card recording is committed, so no REG003 is left,
+    and they pass the schema (no REG004); nothing else is found (no
+    SPEC003 against the card's budget, no REG002: both apps' parity
+    cases build on the CPU)."""
     findings = TL.lint_all()
     assert _keys(findings) == UNRECORDED
-    for f in findings:
-        assert f.detail.startswith("declared recording missing: ")
-        assert os.path.dirname(f.detail.split(": ", 1)[1]) == MEASUREMENTS
-    assert [os.path.basename(f.detail) for f in findings] == [
-        "fleet_cuda.json", "wami_cuda_tile128.json",
-        "wami_cuda_tile256.json", "wami_cuda_tile64.json"]
+    declared = sorted(os.path.basename(app.measurement_path(t))
+                      for app in TR.list_apps() for t in app.recorded_tiles)
+    assert declared == CARD_RECORDINGS
+    for name in declared:
+        assert os.path.exists(os.path.join(MEASUREMENTS, name))
+    # without one of them, its REG003 is back
+    wami = dataclasses.replace(TR.get_app("wami"), measurement_path=lambda
+                               t: os.path.join(MEASUREMENTS,
+                                               f"missing_tile{t}.json"))
+    assert [f.subject for f in TL.lint_app(wami)
+            if f.rule == "REG003"] == ["tile=64", "tile=128", "tile=256"]
 
 
 def test_registry_lints_clean_on_copies_of_the_reference_recordings(
@@ -305,13 +311,14 @@ def test_obs001_walks_the_port_s_oracle_modules():
 # the CLI
 # ----------------------------------------------------------------------
 def test_cli_exit_codes(tmp_path, capsys):
-    assert TL.main([]) == 1
-    err = capsys.readouterr().err.splitlines()
-    assert [line.split(":")[0] for line in err[:-1]] == [
-        f"{r} {a}/{s}" for r, a, s in UNRECORDED]
-    assert err[-1] == "lint: 4 finding(s) across [fleet, wami]"
-    assert TL.main(["--app", "wami"]) == 1
-    assert "3 finding(s) across [wami]" in capsys.readouterr().err
+    assert TL.main([]) == 0
+    out = capsys.readouterr()
+    assert out.err == ""
+    assert out.out.splitlines() == [
+        "lint ok: [fleet, wami] — registry, kernel specs, and knob spaces "
+        "are statically clean"]
+    assert TL.main(["--app", "wami"]) == 0
+    assert capsys.readouterr().out.startswith("lint ok: [wami] — ")
     wami, fleet = _on_copies(tmp_path)
     for app in (_port_broken(tmp_path),
                 dataclasses.replace(wami, name="wami_on_copies")):

@@ -125,8 +125,12 @@ def test_wami_capability_metadata():
     assert set(cuda.supported_tiles(wami)) <= set(wami.recorded_tiles)
     cal = cuda.calibrate(wami)
     assert cal is not None and hasattr(cal, "synthesize")
-    # the port's own recordings are not committed: nothing to fit from
-    assert cuda.calibrate(get_app("wami")) is None
+    # the port's own card recording of the native tile is committed: the
+    # fallback is fitted from it
+    own = cuda.calibrate(get_app("wami"))
+    assert type(own).__name__ == "CalibratedTool"
+    assert own.synthesize("sd_update", unrolls=1, ports=1).feasible
+    assert cuda.supported_tiles(get_app("wami")) == (64, 128, 256)
     sets = wami.measurement_set((64, 128, 256))
     assert sets.keys() == [(t, "interpret") for t in (64, 128, 256)]
     assert all(len(store) > 0 for store in sets.stores())
