@@ -9,6 +9,12 @@ which fails the run on any error:
 
   1. device  — the card's name and power limit; build every kernel
      under ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+     then the CDFG walk (``[cdfg]``): the 12 WAMI scalar bodies traced
+     by ``make_fx`` and walked with example arguments on the card and on
+     the CPU (a first and a warm walk each, ms printed): the facts must
+     be the same on both, the 11 walked ones must equal
+     ``WAMI_KERNEL_FACTS`` (hessian's are pinned there), and so must
+     every component's loop nest, which the later phases price;
   2. parity  — every WAMI kernel against its plain PyTorch version on
      the card, at tiles 64 and 128 (the tiles the WAMI drives run at)
      and at the 512x512 frame, over the stage's
@@ -575,6 +581,67 @@ def phase_functional(dev):
     _require(dp < 1e-3 and dm <= m_cpu.numel() // 1000, (dp, dm))
     return {"p": ps.tolist(), "foreground": fg, "moved_square": moved,
             "wall_s": wall, "cpu_max_dp": dp, "cpu_mask_diff": dm}
+
+
+def phase_cdfg(dev, smi):
+    """The CDFG walk: each component's scalar body traced by ``make_fx``
+    and walked on the card and on the CPU, twice each (the first walk of
+    a body, then a warm one after the cache is cleared).  The facts must
+    not depend on the device, and the 11 walked components' must equal
+    WAMI_KERNEL_FACTS (hessian's stay pinned: the port's own walk of it
+    prints beside the table's), as must every loop nest's."""
+    import torch
+    from repro_torch.apps.wami import cdfg
+    from repro_torch.apps.wami.components import build_components
+    t_phase = time.perf_counter()
+    comps = build_components()
+    out = {name: {} for name in comps}
+    for where, label in ((dev, "card"), (torch.device("cpu"), "cpu")):
+        for name, c in comps.items():
+            args = tuple(a.to(where) for a in c.kernel_args)
+            ms = []
+            for _ in range(2):
+                cdfg.clear_facts_cache()
+                t0 = time.perf_counter()
+                f = cdfg.analyze_kernel(c.kernel, args)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[name][label] = {
+                "facts": [list(f.reads_per_input), f.writes, f.arith_ops,
+                          f.dep_depth, f.live_values],
+                "first_ms": ms[0], "warm_ms": ms[1]}
+    cdfg.clear_facts_cache()
+    print(f"[cdfg] {smi}; torch {torch.__version__}", flush=True)
+    print(f"[cdfg] {'component':<14}{'reads':<10}{'writes':>7}{'ops':>5}"
+          f"{'depth':>6}{'live':>5}   card ms first, warm   CPU ms first, "
+          f"warm   table", flush=True)
+    for name, r in out.items():
+        card, cpu = r["card"], r["cpu"]
+        reads, writes, ops, depth, live = card["facts"]
+        t = cdfg.WAMI_KERNEL_FACTS[name]
+        want = [list(t.reads_per_input), t.writes, t.arith_ops, t.dep_depth,
+                t.live_values]
+        pinned = name in cdfg.PINNED_FACTS
+        verdict = (f"pinned at {tuple(want[2:])}" if pinned else
+                   "equal" if card["facts"] == want else "DIFFERS")
+        print(f"[cdfg] {name:<14}{str(tuple(reads)):<10}{writes:>7}{ops:>5}"
+              f"{depth:>6}{live:>5}   {card['first_ms']:>9.2f}, "
+              f"{card['warm_ms']:>7.2f}   {cpu['first_ms']:>8.2f}, "
+              f"{cpu['warm_ms']:>7.2f}   {verdict}", flush=True)
+        _require(card["facts"] == cpu["facts"],
+                 f"{name}: card facts {card['facts']} != CPU {cpu['facts']}")
+        _require(pinned or card["facts"] == want,
+                 f"{name}: walked facts {card['facts']} != table {want}")
+    for name, c in comps.items():
+        ln, t = c.loop_nest(), cdfg.WAMI_KERNEL_FACTS[name]
+        _require((ln.arith_ops, ln.dep_depth, ln.live_values)
+                 == (t.arith_ops, t.dep_depth, t.live_values),
+                 f"{name}: loop nest {ln} off the table {t}")
+    wall = time.perf_counter() - t_phase
+    print(f"[cdfg] facts equal on the card and the CPU; "
+          f"{len(comps) - len(cdfg.PINNED_FACTS)} of {len(comps)} walked "
+          f"equal WAMI_KERNEL_FACTS, every loop nest its entry; phase "
+          f"{wall:.2f} s", flush=True)
+    return {"components": out, "wall_s": wall}
 
 
 def phase_dse(dev, table, rec_dir):
@@ -3884,6 +3951,7 @@ def main(argv=None) -> int:
     libs = build_all()
     print(f"[device] built {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cdfg = phase_cdfg(dev, smi)
 
     inputs, table = kernel_table()
     errs = phase_parity(dev, inputs, table)
@@ -3973,6 +4041,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": kernels,
+                       "cdfg": cdfg,
                        "functional": functional, "dse": dse,
                        "fleet_dse": fleet_dse, "share_plm": share_plm,
                        "service": service, "soc": soc, "lint": lint,

@@ -398,9 +398,10 @@ def test_verify_file_on_the_reference_s_artifacts(path, with_fronts,
     the same way.  With fronts, both report the same ``C-FRONT [wami]``:
     the artifacts were composed from WAMI CDFG facts made before jax 0.9
     (under which ``repro/apps/wami/cdfg.py::_walk`` prices the ``jit``
-    and ``iota`` equations as arithmetic), and the port pins the live
-    facts (``WAMI_KERNEL_FACTS``), so its re-resolved WAMI front is the
-    live reference's, which no longer holds the committed point."""
+    and ``iota`` equations as arithmetic), and the port's own walk of its
+    ``make_fx`` graphs gives the live facts (hessian's are pinned to them
+    in ``WAMI_KERNEL_FACTS``), so its re-resolved WAMI front is the live
+    reference's, which no longer holds the committed point."""
     t = TV.verify_composition_file(path, with_fronts=with_fronts)
     j = JV.verify_composition_file(path, with_fronts=with_fronts)
     assert (t[0], [str(v) for v in t[1]]) == (j[0], [str(v) for v in j[1]])
