@@ -215,7 +215,19 @@ which fails the run on any error:
      beside the traced and the planned bytes, ms a step beside the
      roofline compute term (the fake group moves no data: the loss is
      not checked).  No kernel is on this path; the child's counts come
-     back.
+     back;
+  9. bench   — the paper's experiment scripts (``[bench]``,
+     ``repro_torch.bench``): the whole scenario matrix through
+     ``repro_torch.bench.run`` on the card into a temporary directory,
+     the kernels' counts zeroed just before and read just after; a line
+     per cell (id, run or skip, seconds, reason); every cell runs but
+     ``BENCH_SKIPS``, each skip with its reason; the kernels cells
+     launch all nine kernels at (4, 8), tile 128, against their plain
+     versions (max|d| / max(1, max|ref|) <= 1e-4, else the cell fails);
+     the cells that replay the card's recordings, and fig11, run again
+     on the CPU to the same CSV, and print the pinned lines
+     (``BENCH_PINNED``); then ``fig11 --smoke``, ``fig10 --smoke
+     --backend cuda`` and ``fleet --smoke`` (both backends) must exit 0.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -228,6 +240,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -3899,6 +3912,133 @@ def phase_lm_dryrun():
     return out
 
 
+# the cells the bench matrix skips on the card, each with its reason
+BENCH_SKIPS = {"fig10/wami-analytical-tiles"}
+# the cells that replay the card's recordings, and fig11: run again on
+# the CPU, each must print the same CSV
+BENCH_CPU_CELLS = ("fig4/wami-cuda", "fig10/wami-cuda",
+                   "fig10/wami-cuda-share_plm", "fig10/wami-cuda-tiles",
+                   "fig10/wami-cuda-workers1", "fleet/fleet-cuda",
+                   "fig11/wami-analytical")
+# what the cells print of the pinned numbers: the tile-128 recording's
+# mapped points and theta range (``CARD_RECORDINGS``) and Fig. 11's
+# reductions on the CPU
+BENCH_PINNED = {
+    "fig10/wami-cuda": "# theta range [56.49, 336.98] frames/s, 10 points, "
+                       "delta=0.25",
+    "fig11/wami-analytical": "# ours: 6.7x average, up to 9.6x",
+}
+
+
+def _bench_smoke(what, main, argv):
+    """A bench's standalone gate, as ``python -m repro_torch.bench.<m>
+    ARGV`` runs it: its lines print, and it must exit 0."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"[bench]   {line}", flush=True)
+    _require(rc == 0, f"[bench] {what} exited {rc}")
+    print(f"[bench] {what}: exit 0, {secs:.2f} s", flush=True)
+    return {"argv": argv, "seconds": secs, "lines": buf.getvalue()}
+
+
+def phase_bench():
+    """The experiment scripts (``[bench]``): the whole scenario matrix
+    through ``repro_torch.bench.run`` on the card into a temporary
+    directory, every kernel's count zeroed just before and read just
+    after (the kernels cells launch every registered kernel against its
+    plain version; the fleet cells replay); a line per cell; every cell
+    must run but the ones in ``BENCH_SKIPS``, each skip with its reason;
+    the cells that replay the card's recordings, and fig11, run again on
+    the CPU to the same CSV; then the standalone gates ``fig11
+    --smoke``, ``fig10 --smoke --backend cuda`` and ``fleet --smoke``
+    (both backends)."""
+    from repro_torch.bench import (fig10_pareto, fig11_invocations,
+                                   fleet_dse)
+    from repro_torch.bench import run as harness
+    counters = _dryrun_counters()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, \
+            tempfile.TemporaryDirectory() as cpu_out:
+        for c in counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = harness.main(["--out-dir", out])
+        matrix_s = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        with open(os.path.join(out, "matrix.json")) as f:
+            doc = json.load(f)
+        cells = {}
+        for entry in doc["cells"]:
+            cells[entry["id"]] = entry
+            print(f"[bench] {entry['id']:40s} {entry['status']:5s} "
+                  f"{entry.get('seconds', 0.0):7.2f} s  "
+                  f"{entry['reason'] or ''}", flush=True)
+        errors = [e for e in doc["cells"] if e["status"] == "error"]
+        _require(rc == 0 and not errors,
+                 f"[bench] the matrix exited {rc}; failed cells: "
+                 f"{[(e['id'], e['reason']) for e in errors]}; "
+                 f"{buf.getvalue()[-3000:]}")
+        skipped = {i for i, e in cells.items() if e["status"] == "skip"}
+        _require(skipped == BENCH_SKIPS
+                 and all(cells[i]["reason"] for i in skipped),
+                 f"[bench] skipped {sorted(skipped)}, not "
+                 f"{sorted(BENCH_SKIPS)} with reasons")
+        _require(all(e["status"] == "run" for i, e in cells.items()
+                     if i not in BENCH_SKIPS),
+                 "[bench] a cell did not run")
+        never = [n for n, v in launches.items() if not v]
+        _require(not never, f"[bench] kernels never launched by the "
+                            f"kernels cells: {never}")
+        for row in buf.getvalue().splitlines():
+            if "parity=" in row:         # the kernels cells' rows
+                print(f"[bench]   {row}", flush=True)
+
+        def csv(root, cid):
+            bench, rest = cid.split("/")
+            with open(os.path.join(root, bench, rest + ".csv")) as f:
+                return f.read()
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            for cid in BENCH_CPU_CELLS:
+                _require(harness.main(["--cell", cid, "--out-dir", cpu_out,
+                                       "--device", "cpu"]) == 0,
+                         f"[bench] {cid} failed on the CPU")
+        cpu_s = time.perf_counter() - t0
+        for cid in BENCH_CPU_CELLS:
+            _require(csv(out, cid) == csv(cpu_out, cid),
+                     f"[bench] {cid}: the card's CSV differs from the "
+                     f"CPU's")
+        for cid, line in BENCH_PINNED.items():
+            _require(line in csv(out, cid).splitlines(),
+                     f"[bench] {cid} does not print {line!r}")
+        print(f"[bench] {len(BENCH_CPU_CELLS)} cells equal on the card and "
+              f"the CPU ({cpu_s:.2f} s on the CPU); pinned lines present",
+              flush=True)
+        for cid in ("fig10/wami-cuda", "fleet/fleet-cuda"):
+            for line in csv(out, cid).splitlines():
+                print(f"[bench]   {cid}: {line}", flush=True)
+    smokes = [
+        _bench_smoke("fig11 --smoke", fig11_invocations.main, ["--smoke"]),
+        _bench_smoke("fig10 --smoke --backend cuda", fig10_pareto.main,
+                     ["--smoke", "--backend", "cuda"]),
+        _bench_smoke("fleet --smoke", fleet_dse.main, ["--smoke"]),
+        _bench_smoke("fleet --smoke --backend cuda", fleet_dse.main,
+                     ["--smoke", "--backend", "cuda"]),
+    ]
+    phase_s = time.perf_counter() - t_phase
+    print(f"[bench] {phase_s:.1f} s (the matrix {matrix_s:.1f} s); kernel "
+          f"launches by the kernels cells: {launches}", flush=True)
+    return {"cells": cells, "launches": launches, "matrix_s": matrix_s,
+            "cpu_s": cpu_s, "smokes": smokes, "phase_s": phase_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -3976,6 +4116,7 @@ def main(argv=None) -> int:
     lm_serve = phase_lm_serve(dev)
     lm_train = phase_lm_train(dev, table)
     lm_dryrun = phase_lm_dryrun()
+    bench = phase_bench()
 
     kernels = []
     for k in table:
@@ -3990,6 +4131,7 @@ def main(argv=None) -> int:
             "soc_launches": soc["launches"][k["name"]],
             "lm_train_launches": lm_train["launches"][k["name"]],
             "lm_dryrun_launches": lm_dryrun["launches"][k["name"]],
+            "bench_launches": bench["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4016,6 +4158,7 @@ def main(argv=None) -> int:
             "soc_launches": soc["launches"][k["name"]],
             "lm_train_launches": lm_train["launches"][k["name"]],
             "lm_dryrun_launches": lm_dryrun["launches"][k["name"]],
+            "bench_launches": bench["launches"][k["name"]],
             "max_abs_err": errs[k["name"]],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
@@ -4049,7 +4192,8 @@ def main(argv=None) -> int:
                        "kill_resume": kill_resume,
                        "pricing": pricing, "times": times,
                        "fleet_times": fleet_times, "lm_serve": lm_serve,
-                       "lm_train": lm_train, "lm_dryrun": lm_dryrun},
+                       "lm_train": lm_train, "lm_dryrun": lm_dryrun,
+                       "bench": bench},
                       f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

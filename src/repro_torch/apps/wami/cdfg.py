@@ -25,6 +25,13 @@ walk gives them under jax 0.9; the walk here equals it for 11 of them.
 ``hessian`` is the exception (:func:`component_facts`): its JAX body's
 ``jnp.triu_indices`` traces into index arithmetic that aten has no
 counterpart for, so its facts stay pinned.
+
+Two common ops differ from the reference by their IR, not by the walk
+(``tests/test_torch_cdfg_rules.py`` pins the offsets): aten holds a
+softmax as one ``_softmax``, where jax traces seven equations (among them
+a ``max`` against ``-inf`` that no aten decomposition has), and indexing
+with a tensor as one ``index``, where jax adds the gather's index
+arithmetic.
 """
 
 from __future__ import annotations
@@ -57,6 +64,13 @@ _ARITH = {
     "bitwise_left_shift", "bitwise_right_shift",
 }
 _REDUCE = {"sum", "amax", "amin", "prod", "any", "all", "argmax", "argmin"}
+# `max` and `min` are reductions in their whole-tensor and `dim` overloads
+# (jax's reduce_max / reduce_min); `max.other` / `min.other` are the
+# elementwise maximum / minimum and stay in no class, priced as arithmetic
+_REDUCE_OVERLOADS = {
+    torch.ops.aten.max.default, torch.ops.aten.max.dim,
+    torch.ops.aten.min.default, torch.ops.aten.min.dim,
+}
 # wiring: views, copies, casts, joins and constants
 _FREE = {
     "view", "reshape", "_unsafe_view", "unsqueeze", "squeeze", "expand",
@@ -136,7 +150,7 @@ def _walk(graph: torch.fx.Graph, root: torch.nn.Module,
             cost, d = 0, d_in
         elif name in _ARITH:
             cost, d = width, d_in + 1
-        elif name in _REDUCE:
+        elif name in _REDUCE or node.target in _REDUCE_OVERLOADS:
             n = max((t.numel() for t in tensors), default=1)
             cost = max(1, n - 1)
             d = d_in + max(1, math.ceil(math.log2(max(2, n))))  # tree reduce
@@ -170,19 +184,23 @@ def _walk(graph: torch.fx.Graph, root: torch.nn.Module,
 
 
 def _analyze(kernel: Callable, example_args: Sequence) -> KernelFacts:
-    # `jnp.stack` is one `concatenate` of expanded operands; decomposing
-    # aten.stack the same way (unsqueeze each, then cat) gives the graph
-    # the values the jaxpr has
+    # ops that jax traces as several equations, decomposed the same way:
+    # `jnp.stack` is one `concatenate` of expanded operands (unsqueeze
+    # each, then cat), `jnp.mean` a `reduce_sum` and a `div`
     from torch._decomp import get_decompositions
     from torch.fx.experimental.proxy_tensor import make_fx
 
     gm = make_fx(kernel, decomposition_table=get_decompositions(
-        [torch.ops.aten.stack]))(*example_args)
+        [torch.ops.aten.stack, torch.ops.aten.mean]))(*example_args)
     nodes = list(gm.graph.nodes)
     inputs = [n for n in nodes if n.op == "placeholder"]
     out = next(n for n in nodes if n.op == "output")
     reads = tuple(_size(n.meta.get("val")) for n in inputs)
-    writes = sum(_size(n.meta.get("val")) for n in out.all_input_nodes)
+    # every returned value counts, a value returned twice twice (the
+    # reference sums over the jaxpr's outvars)
+    writes = sum(_size(n.meta.get("val")) for n in
+                 torch.utils._pytree.tree_leaves(out.args[0])
+                 if isinstance(n, torch.fx.Node))
     arith, dep_depth, n_vars = _walk(gm.graph, gm, {n: 0 for n in inputs})
     live = max(4, min(n_vars, sum(reads) + writes + 4))
     return KernelFacts(reads_per_input=reads, writes=writes,

@@ -121,6 +121,48 @@ class App:
         return tuple(t for t in self.recorded_tiles
                      if os.path.exists(self.measurement_path(t)))
 
+    def recording_keys(self) -> List[Tuple[int, str, str, int]]:
+        """Every recording on disk, as ``(tile, device_kind, file,
+        points)`` — the ``(tile, device_kind)`` pairs are the
+        :class:`MeasurementSet` routing keys the measured backend can
+        replay; ``file`` is the store's basename under
+        ``artifacts/measurements/``."""
+        out: List[Tuple[int, str, str, int]] = []
+        if self.measurement_path is None:
+            return out
+        for t in self.recorded_tiles:
+            path = self.measurement_path(t)
+            if not os.path.exists(path):
+                continue
+            store = MeasurementStore.load(path)
+            out.append((store.tile or t, store.device_kind,
+                        os.path.basename(path), len(store.entries)))
+        return out
+
+    def describe(self) -> Dict[str, Any]:
+        """The app as a plain dict — what doc generation
+        (``python -m repro_torch.bench.run --emit-docs``) reads.
+        Deterministic: sorted keys, recording basenames only."""
+        return {
+            "name": self.name,
+            "description": self.description,
+            "components": sorted(t.name for t in self.tmg().transitions),
+            "fixed": sorted(self.fixed),
+            "delta": self.delta,
+            "measured": self.kernel_specs is not None,
+            "native_tile": self.native_tile,
+            "recorded_tiles": list(self.recorded_tiles),
+            "available_tiles": list(self.available_tiles()),
+            "recordings": [
+                {"tile": t, "device_kind": kind, "file": name, "points": n}
+                for t, kind, name, n in self.recording_keys()],
+            "plm_planner": self.plm_planner is not None,
+            "plm_tile_sizes": list(self.plm_tile_sizes),
+            "plm_tile_sizes_measured": list(self.plm_tile_sizes_measured),
+            "parity_cases": self.parity_cases is not None,
+            "record_hint": self.record_hint,
+        }
+
     def measurement_set(self, tiles: Optional[Sequence[int]] = None, *,
                         mode: str = "replay",
                         device_kind: Optional[str] = "",

@@ -174,7 +174,10 @@ class DSEService:
     ``cache_root`` makes the caches durable (one subdirectory per
     pool); ``verify_plans`` turns on the strict plan post-pass for
     every tenant session; ``metrics`` is the registry the service
-    counts into and ``stats()`` embeds (a new one when None).
+    counts into and ``stats()`` embeds (a new one when None);
+    ``tool_options`` are keywords for every pool's ``build_tool`` (the
+    measured backend's ``mode``, ``device``, ...: a service that
+    replays the card's recordings passes ``{"mode": "replay"}``).
 
     Use as a context manager, or call :meth:`close` — queued and
     running queries complete first (``close(drain=False)`` abandons the
@@ -187,7 +190,8 @@ class DSEService:
                  flush_every: int = 16,
                  verify_plans: bool = False,
                  tracer=None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 tool_options: Optional[Dict[str, Any]] = None):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.max_pending = max_pending
@@ -195,6 +199,7 @@ class DSEService:
         self.cache_root = cache_root
         self.flush_every = flush_every
         self.verify_plans = verify_plans
+        self.tool_options = dict(tool_options or {})
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # one registry for the whole service: the query counters below,
         # queue-wait/latency histograms, per-pool shared-oracle and cache
@@ -306,7 +311,7 @@ class DSEService:
                     metrics=self.metrics, name=slug)
                 tool = build_tool(query.app, query.backend,
                                   share_plm=query.share_plm,
-                                  tiles=query.tiles)
+                                  tiles=query.tiles, **self.tool_options)
                 # pool-level whole-grid pricing: analytical tools answer
                 # every tenant's scalar request from one shared, memoized
                 # grid per (component, tile) — bit-exact, so coalescing

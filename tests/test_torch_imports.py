@@ -78,4 +78,13 @@ def test_port_imports_neither_jax_nor_repro():
                  "examples.quickstart", "examples.serve_lm",
                  "examples.train_lm"):
         assert f"repro_torch.{name}" in got["modules"], name
+    # the experiment scripts: one module per file of the JAX package's
+    # benchmarks/
+    for name in ("bench", "bench.scenarios", "bench.run",
+                 "bench.fig11_invocations", "bench.fig10_pareto",
+                 "bench.table1_characterization", "bench.fig4_motivational",
+                 "bench.fleet_dse", "bench.kernels_micro",
+                 "bench.soc_compose", "bench.autoshard_llm",
+                 "bench.roofline_table"):
+        assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
