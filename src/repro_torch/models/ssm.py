@@ -6,8 +6,16 @@ chunks: every chunk's own terms at once, then a loop over chunks for
 the carried state in place of its ``lax.scan``) and the
 O(1)-per-token recurrence for decode.  Plain PyTorch, as the JAX
 package's models compute it outside any Pallas kernel; the CUDA SSD
-scan (``repro_torch.kernels.ssd_scan``) is timed against
-:func:`_ssd_chunked` but not routed here.
+scan (``csrc/ssd_scan.cu``, bound by ``repro_torch.kernels.ssd_scan``)
+is timed against :func:`_ssd_chunked` but routed nowhere: no path of
+the model launches it.
+
+While a ``torch.profiler`` records, the mixer (:func:`mamba_sequence`)
+and its chunked SSD (the local body of :func:`_ssd_chunked`) run inside
+the ranges ``mamba.mixer`` and ``mamba.ssd``
+(:func:`repro_torch.core.obs.device_range`).  Each covers its forward,
+its recompute under remat and, through autograd hooks, its backward,
+which runs on autograd's thread; nothing else changes.
 
 Shapes: heads H = d_inner / head_dim P, single B/C group (G=1), state N.
 """
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.obs.ranges import device_range
 from ..dist.sharding import (batch_heads_placements, batch_only,
                              constrain_residual, gather_grad_unless_divides,
                              gather_unless_divides, is_dtensor, local_call)
@@ -113,6 +122,12 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           (head, head, a_pl, row, row,
                            None if h0 is None else state_pl),
                           (head, state_pl))
+    return _ssd_local(x, dt, A, Bm, Cm, chunk, h0)
+
+
+@device_range("mamba.ssd")
+def _ssd_local(x, dt, A, Bm, Cm, chunk, h0):
+    """:func:`_ssd_chunked` on one device's tensors."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -166,6 +181,7 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :S], h
 
 
+@device_range("mamba.mixer")
 def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
                    state: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

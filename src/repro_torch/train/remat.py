@@ -11,6 +11,12 @@ policy-agnostic.  Policies:
     chain (a selective-checkpoint policy, the counterpart of JAX's
     ``checkpoint_dots``); ``dots_no_batch`` saves only the products
     without a batch dimension (``mm``/``addmm``, not ``bmm``).
+
+Under every policy but ``none``, the re-run of a layer body in backward
+runs inside the profiler range ``remat.recompute`` while a
+``torch.profiler`` records.  The range wraps the body, not the
+checkpoint's recompute context: under a tracing compiler ``checkpoint``
+takes only dispatch modes there, and ``full`` keeps its default.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ..core.obs.ranges import device_range
 
 __all__ = ["remat_context", "maybe_remat", "current_policy"]
 
@@ -55,17 +63,21 @@ def _save_ops_policy(saved, ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+_RECOMPUTE = device_range("remat.recompute")
+
+
 def maybe_remat(fn: Callable) -> Callable:
     """Wrap a layer body according to the active policy (identity when
     no policy is installed)."""
     policy = current_policy()
     if policy in (None, "none"):
         return fn
+    body = _RECOMPUTE.inside_backward(fn)
     if policy == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, body, use_reentrant=False)
     saved = _SAVED_OPS[policy]
     context_fn = functools.partial(
         create_selective_checkpoint_contexts,
         functools.partial(_save_ops_policy, saved))
-    return functools.partial(checkpoint, fn, use_reentrant=False,
+    return functools.partial(checkpoint, body, use_reentrant=False,
                              context_fn=context_fn)
