@@ -140,8 +140,10 @@ which fails the run on any error:
      its max|d| against the plain version prints for information;
   6. lm-serve — the LM serving path (``[lm-serve]``: configs ->
      ``SyntheticLM`` -> ``build_model`` -> ``ServeEngine``), whose models
-     compute attention and the SSD in plain PyTorch as the JAX package's
-     do: every arch at ``.reduced()`` (float32, TF32 off) with the same
+     compute attention in plain PyTorch as the JAX package's do, and the
+     Mamba layers' prefill SSD as the forward kernel (the reduced and
+     the full-width drives each launch it, never the backward, and take
+     the plain SSD body on the card nowhere): every arch at ``.reduced()`` (float32, TF32 off) with the same
      weights on the card and on the CPU — prefill and next-step logits
      within max|d| / max|ref| <= 1e-4, greedy ``generate`` tokens (8,
      whisper with frames) equal (from a step whose top-2 logits lie
@@ -161,16 +163,22 @@ which fails the run on any error:
      parameter GB, init s, prefill ms, ms a decode step, tok/s and peak
      memory printed.  Last, flash attention and the SSD scan timed at
      the served shapes beside the models' own ``attention_core`` and
-     ``_ssd_chunked`` on the same inputs (routed nowhere), max|d|
+     plain SSD body (``_ssd_plain``) on the same inputs, max|d|
      printed against the kernels' tolerances (bf16 2e-2; SSD 1e-4 x
      max(1, max|ref|)): gemma2-9b prefill and its last decode step (one
      query over 143 keys, blocks (1, 13)), zamba2-2.7b attention (d 80)
-     and SSD (H 80, P 64, N 64, chunk 256 clipped to 128);
+     and SSD (H 80, P 64, N 64, chunk 256 clipped to 128); and the SSD's
+     backward kernel at one layer of the mamba2-780m training cell (20
+     x 2048, H 48, P 64, N 128, chunk 256 run as 4 x 64) beside autograd
+     of the plain body, each of dx, ddt, dA, dB and dC within 1e-4 x
+     max(1, max|its ref|), its bound at the f32 and the 3xTF32 rate;
   7. lm-train — the LM training path (``[lm-train]``: configs ->
      ``build_model`` -> ``init_opt`` -> ``make_train_step`` ->
      ``DataPipeline`` -> ``Watchdog`` -> ``AsyncCheckpointer``, through
      ``launch.train.run``), plain PyTorch and autograd as the JAX
-     package trains through ``jax.grad`` of plain code: every arch at
+     package trains through ``jax.grad`` of plain code, but for the
+     Mamba layers' chunked SSD, which runs as the SSD kernels (forward
+     and backward) on the card: every arch at
      ``.reduced()`` (float32, TF32 off), card against CPU from the same
      weights — loss, grad norm and every gradient leaf of one step
      within 1e-4, and AdamW's float32 and 8-bit updates from the CPU's
@@ -191,7 +199,10 @@ which fails the run on any error:
      zamba2-2.7b at full width, 6 steps of 4 x 512 with microbatches 2, remat full and
      8-bit moments: finite, its float32 state at least 3.9x the 8-bit
      state's bytes.  The kernels' counts are zeroed before the
-     full-width drives and read after (none is on this path);
+     full-width drives and read after (the SSD's forward and backward
+     the only ones on this path); the reduced and the full-width drives
+     each launch both SSD kernels and take the plain SSD body on the
+     card nowhere;
   8. lm-dryrun — the sharded dry run (``[lm-dryrun]``, in a child
      process, ``chip_smoke.py --lm-dryrun-child OUT``, since a process
      group belongs to the whole process; its files under
@@ -2688,8 +2699,9 @@ LM_LAYER_TOL = 1e-4
 LM_SERVE_ARCHS = (("gemma2-9b", 1, 3e-2), ("zamba2-2.7b", 8, 1e-1))
 LM_SERVE = dict(requests=6, slots=4, prompt_len=128, max_new=16)
 LM_LAYER_TOKENS = 16
-# the kernels at the served models' shapes (timed and compared only; the
-# models run their own plain attention_core and _ssd_chunked)
+# the kernels at the served models' shapes, timed and compared beside the
+# models' plain attention_core and SSD body (_ssd_plain); the models route
+# the SSD through the kernels on the card
 LM_FLASH_ROWS = (
     dict(label="gemma2-9b prefill", B=4, Sq=128, Skv=128, H=16, K=8, d=256,
          window=4096, softcap=50.0, blocks=(64, 64)),
@@ -2703,6 +2715,10 @@ LM_FLASH_ROWS = (
 )
 LM_SSD_ROW = dict(label="zamba2-2.7b SSD", Bz=4, S=128, H=80, P=64, N=64,
                   chunk=256)
+# the SSD's backward at one layer of the mamba2-780m training cell
+LM_SSD_BWD_ROW = dict(label="mamba2-780m SSD backward", Bz=20, S=2048, H=48,
+                      P=64, N=128, chunk=256)
+SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
 
 def _lm_batch(cfg, B, S, seed, dev):
@@ -3003,14 +3019,16 @@ def _lm_full_width(dev, cfg, chain, chain_tol):
 
 def _lm_kernel_times(dev):
     """flash attention and the SSD scan at the served models' shapes,
-    timed beside the models' own plain attention_core and _ssd_chunked
-    on the same inputs (routed nowhere); max|d| against them."""
+    timed beside the models' own plain attention_core and SSD body
+    (``_ssd_plain``) on the same inputs, and the SSD's backward kernel at
+    a training layer beside autograd of the plain body; max|d| against
+    them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import mha
     from repro_torch.kernels.ssd_scan import ssd
     from repro_torch.models.blocks import attention_core
-    from repro_torch.models.ssm import _ssd_chunked
+    from repro_torch.models.ssm import _ssd_plain
     out = {"flash_attention": {}, "ssd_scan": {}}
     for r in LM_FLASH_ROWS:
         B, Sq, Skv, H, K, d = (r[k] for k in ("B", "Sq", "Skv", "H", "K",
@@ -3047,8 +3065,8 @@ def _lm_kernel_times(dev):
             "blocks": list(r["blocks"]), "q_offset": off}
     r = LM_SSD_ROW
     args = _ssd_inputs(dev, r["Bz"], r["S"], r["H"], r["P"], r["N"], 22)
-    got, want = ssd(*args, chunk=r["chunk"]), _ssd_chunked(*args,
-                                                           r["chunk"])
+    got, want = ssd(*args, chunk=r["chunk"]), _ssd_plain(*args, r["chunk"],
+                                                         None)
     scale = max(1.0, max(float(w.abs().max()) for w in want))
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
@@ -3058,7 +3076,8 @@ def _lm_kernel_times(dev):
     bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
     out["ssd_scan"][r["label"]] = {
         "ms": _time_ms(dev, lambda: ssd(*args, chunk=r["chunk"])),
-        "plain_ms": _time_ms(dev, lambda: _ssd_chunked(*args, r["chunk"])),
+        "plain_ms": _time_ms(dev, lambda: _ssd_plain(*args, r["chunk"],
+                                                     None)),
         "library_ms": None, "bound_ms": bound, "bound_by": by,
         "bytes": nbytes, "flops": flops, "max_abs_err": err,
         "tol": SSD_TOL * scale, "within_tol": err < SSD_TOL * scale,
@@ -3073,22 +3092,138 @@ def _lm_kernel_times(dev):
                   f"{t['max_abs_err']:.3g} against the model's plain "
                   f"({'within' if t['within_tol'] else 'BEYOND'} the "
                   f"kernel's tolerance {t['tol']:.3g})", flush=True)
+    t = _ssd_bwd_row(dev)
+    out["ssd_scan_bwd"] = {LM_SSD_BWD_ROW["label"]: t}
+    errs = ", ".join(f"{n} {t['max_abs_err'][n]:.3g} (tol {t['tol'][n]:.3g})"
+                     for n in SSD_GRAD_NAMES)
+    print(f"[lm-serve] ssd_scan_bwd at {LM_SSD_BWD_ROW['label']}: kernel "
+          f"{t['ms']:.5f} ms, autograd of the model's plain "
+          f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}), {t['bound_3xtf32_ms']:.6f} ms at the 3xTF32 "
+          f"rate; max|d| against autograd of the model's plain: {errs}",
+          flush=True)
     return out
+
+
+def _ssd_bwd_work(Bz, S, H, P, N, chunk):
+    """(bytes, flops) of the SSD's backward at ``chunk``: x, dt, A, B, C,
+    dy and the forward's saved states read once, the gradients written
+    once; its products, C.B^T once per chunk and batch, then per head
+    dy.x^T and W^T.dy on the lower triangle (2 P a pair each), (K dt)^T.C
+    and (K dt).B on it (2 N each), and five (Q, P, N) products (E, B.g^T,
+    C.h_in^T, and the state terms of dB and dC)."""
+    tri = chunk * (chunk + 1) // 2
+    nc = S // chunk
+    nbytes = 4 * (3 * Bz * S * H * P + 2 * Bz * S * H + 2 * H
+                  + 4 * Bz * S * N + Bz * nc * H * (P * N + 1))
+    flops = Bz * nc * (tri * 2 * N + H * (tri * (4 * P + 4 * N)
+                                          + 10 * chunk * P * N))
+    return nbytes, flops
+
+
+def _ssd_bwd_row(dev):
+    """The backward kernel (``ssd_scan_bwd``) at one layer of the
+    mamba2-780m training cell, from the scratch of one forward, against
+    autograd of the plain body on the same inputs and dy."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.build import smem_optin
+    from repro_torch.kernels.ssd_scan import (ssd_fwd_launch, ssd_grad_plan,
+                                              ssd_scan_bwd_cuda)
+    from repro_torch.models.ssm import _ssd_plain
+    r = LM_SSD_BWD_ROW
+    Bz, S, H, P, N, chunk = (r[k] for k in ("Bz", "S", "H", "P", "N",
+                                            "chunk"))
+    args = _ssd_inputs(dev, Bz, S, H, P, N, 23)
+    dy = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (Bz, S, H, P)).astype(np.float32)).to(dev)
+    plan = ssd_grad_plan(Bz, S, H, P, N, chunk, torch.cuda
+                         .get_device_properties(dev).multi_processor_count,
+                         smem_optin(dev))
+    _, _, scratch = ssd_fwd_launch(*args, plan.fwd)
+
+    def kernel():
+        return ssd_scan_bwd_cuda(*args, dy, None, scratch, plan)
+
+    ins = [t.clone().requires_grad_() for t in args]
+    y, _ = _ssd_plain(*ins, chunk, None)
+
+    def plain():
+        return torch.autograd.grad(y, ins, dy, retain_graph=True)
+    got, want = kernel(), plain()
+    # each gradient against its own size: dA sums every token of the
+    # layer, the others one token's terms
+    errs, tols = {}, {}
+    for n, g, w in zip(SSD_GRAD_NAMES, got, want):
+        tols[n] = SSD_TOL * max(1.0, float(w.abs().max()))
+        errs[n] = _abs_err(f"{r['label']} {n}", g, w, tols[n])
+    run = plan.fwd.chunk
+    nbytes, flops = _ssd_bwd_work(Bz, S, H, P, N, run)
+    bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
+    # the kernel's rate: three TF32 tensor-core products per product
+    bound_tc, _ = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    row = {"ms": _time_ms(dev, kernel, launches=TIME_LAUNCHES_LONG),
+           "plain_ms": _time_ms(dev, plain, launches=TIME_LAUNCHES_LONG,
+                                reps=2),
+           "library_ms": None, "bound_ms": bound, "bound_by": by,
+           "bound_3xtf32_ms": bound_tc, "bytes": nbytes, "flops": flops,
+           "max_abs_err": errs, "tol": tols, "chunk": chunk,
+           "run_chunk": run}
+    del y, ins, scratch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ssd_route_counts(zero=False):
+    """The model SSD's route on the card: the forward's and the
+    backward's kernel launches and the calls that took the plain body
+    (``ssd_plain_calls``); with ``zero``, set to 0 first."""
+    from repro_torch.kernels.ssd_scan import (ssd_plain_calls,
+                                              ssd_scan_bwd_kernel,
+                                              ssd_scan_kernel)
+    if zero:
+        ssd_scan_kernel.launches = ssd_scan_bwd_kernel.launches = 0
+        ssd_plain_calls.calls = 0
+    return {"ssd_scan": ssd_scan_kernel.launches,
+            "ssd_scan_bwd": ssd_scan_bwd_kernel.launches,
+            "ssd_plain_calls": ssd_plain_calls.calls}
+
+
+def _require_ssd_route(tag, drive, counts, backward):
+    """The Mamba layers' chunked SSD took the kernels in ``drive``: the
+    forward launched, the backward launched iff ``backward``, and no call
+    on the card took the plain body."""
+    print(f"[{tag}] {drive}: SSD forward, backward launches and plain "
+          f"calls on the card {counts}", flush=True)
+    _require(counts["ssd_scan"] > 0 and counts["ssd_plain_calls"] == 0
+             and (counts["ssd_scan_bwd"] > 0) == backward,
+             f"[{tag}] {drive}: the model's SSD did not take the kernel "
+             f"route ({counts}; backward launches expected: {backward})")
 
 
 def phase_lm_serve(dev):
     """The LM serving path (``[lm-serve]``): every arch reduced on the
     card against the CPU, the served models at full width, and the two
-    kernels at their shapes.  Frees each model before the next."""
+    kernels at their shapes.  Frees each model before the next.  The SSD
+    route's counts are zeroed before the reduced and the full-width
+    drives and read after: the Mamba layers' prefills launch the forward
+    kernel, never the backward, and take the plain body nowhere."""
     import gc
     import torch
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
+    _ssd_route_counts(zero=True)
     out = {"reduced": _lm_reduced(dev)}
+    route = {"reduced": _ssd_route_counts()}
+    _require_ssd_route("lm-serve", "reduced", route["reduced"], False)
+    _ssd_route_counts(zero=True)
     for arch, chain, chain_tol in LM_SERVE_ARCHS:
         out[arch] = _lm_full_width(dev, get_config(arch), chain, chain_tol)
         gc.collect()
         torch.cuda.empty_cache()
+    route["full_width"] = _ssd_route_counts()
+    _require_ssd_route("lm-serve", "full width", route["full_width"], False)
+    out["ssd_route"] = route
     out["kernels"] = _lm_kernel_times(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-serve] {out['seconds']:.1f} s", flush=True)
@@ -3654,19 +3789,31 @@ def phase_lm_train(dev, table):
     card against the CPU; qwen2-0.5b through the launcher at full width,
     crashed and resumed; zamba2-2.7b at full width with the three knobs.
     The kernels' counts are zeroed before the full-width drives and read
-    after: no kernel lies on this path."""
+    after: the SSD's forward and backward kernels lie on this path (the
+    Mamba layers' chunked SSD), no other kernel does; the reduced and the
+    full-width drives each launch both and take the plain body
+    nowhere."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_kernel,
+                                              ssd_scan_kernel)
     counters = {k["name"]: k["counter"] for k in table}
     counters.update(flash_attention=flash_attention_kernel,
-                    ssd_scan=ssd_scan_kernel)
+                    ssd_scan=ssd_scan_kernel,
+                    ssd_scan_bwd=ssd_scan_bwd_kernel)
     t0 = time.perf_counter()
+    _ssd_route_counts(zero=True)
     out = {"reduced": _lm_train_reduced(dev)}
+    route = {"reduced": _ssd_route_counts()}
+    _require_ssd_route("lm-train", "reduced", route["reduced"], True)
     for c in counters.values():
         c.launches = 0
+    _ssd_route_counts(zero=True)
     out[LM_TRAIN_ARCH] = _lm_train_full(dev)
     out[LM_TRAIN_Q8_ARCH] = _lm_train_q8(dev)
     out["launches"] = {n: c.launches for n, c in counters.items()}
+    route["full_width"] = _ssd_route_counts()
+    _require_ssd_route("lm-train", "full width", route["full_width"], True)
+    out["ssd_route"] = route
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-train] {out['seconds']:.1f} s; kernel launches on the "
           f"training path: {out['launches']}", flush=True)
@@ -4168,6 +4315,10 @@ def main(argv=None) -> int:
         }
         if "bound_3xtf32_ms" in t:
             entry["bound_3xtf32_ms"] = t["bound_3xtf32_ms"]
+        if k["name"] == "ssd_scan":
+            # the model's route: launches and plain calls a drive
+            entry["lm_serve_route"] = lm_serve["ssd_route"]
+            entry["lm_train_route"] = lm_train["ssd_route"]
         # at the served models' shapes, beside the models' plain versions
         entry["lm_serve"] = {
             label: {key: r[key] for key in keep + ("within_tol",)
@@ -4179,6 +4330,15 @@ def main(argv=None) -> int:
                                                       1)] = {
                     key: r[key] for key in keep if key in r}
         kernels.append(entry)
+    # the SSD's backward: the training path's, timed at the cell's layer
+    bwd = lm_serve["kernels"]["ssd_scan_bwd"][LM_SSD_BWD_ROW["label"]]
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu", "replaces": None,
+        "lm_train_launches": lm_train["launches"]["ssd_scan_bwd"],
+        "lm_train_route": lm_train["ssd_route"],
+        **{key: bwd[key] for key in keep + ("tol",) if key in bwd},
+        "shape": LM_SSD_BWD_ROW["label"]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

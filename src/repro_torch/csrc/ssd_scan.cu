@@ -62,24 +62,14 @@
 #include <cstdint>
 
 #include "kernel_export.cuh"
-#include "tf32_mma.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 // state pass: a small one (the DSE's chunks 8 and 16) runs one element a
 // thread with 32 chunks' loads in flight, a large one four elements a
 // thread (16-byte accesses) with 8 in flight
 constexpr int kSmallState = 1 << 16;   // elements
-// up to this many chunks the output pass walks the chunk states itself
-// (each CTA reads the states before its chunk, in chunk order) and the
-// state pass is not launched
-constexpr int kWalkChunks = 8;
-
-__host__ __device__ constexpr int round_up(int v, int m) {
-    return (v + m - 1) / m * m;
-}
 
 // A CTA's staging, in floats.  Q rows pad to 16 (the mma's rows), N to 8
 // (its depth), the slice of P to 16 (rows of the S_c product).
@@ -103,50 +93,7 @@ struct Geometry {
     }
 };
 
-// ---------------------------------------------------------------- copies
-// rows x cols of a row-major global block (row stride ld floats) into
-// shared memory (row stride sld, a multiple of 4), zero-filled out to
-// rows_p x cols_p (cols_p a multiple of 4): 16-byte copies when every row
-// starts 16-byte aligned, 4-byte copies otherwise.
-__device__ void stage(float* dst, int sld, const float* src, long long ld,
-                      int rows, int cols, int rows_p, int cols_p) {
-    const bool vec = ((reinterpret_cast<uintptr_t>(src)
-                       | static_cast<uintptr_t>(ld * 4)
-                       | static_cast<uintptr_t>(cols * 4)) & 15) == 0;
-    if (vec) {
-        const int units = cols_p / 4;
-        for (int e = threadIdx.x; e < rows_p * units; e += kThreads) {
-            const int r = e / units, c = (e - r * units) * 4;
-            float* d = dst + r * sld + c;
-            if (r < rows && c < cols)
-                cp_async16(d, src + r * ld + c);
-            else
-                *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f,
-                                                            0.f);
-        }
-    } else {
-        for (int e = threadIdx.x; e < rows_p * cols_p; e += kThreads) {
-            const int r = e / cols_p, c = e - r * cols_p;
-            float* d = dst + r * sld + c;
-            if (r < rows && c < cols)
-                cp_async4(d, src + r * ld + c);
-            else
-                *d = 0.f;
-        }
-    }
-}
-
-// --------------------------------------------------------- tensor cores
-// an operand of D = A . B^T in shared memory: element (row, k) at
-// p[row * sr + k * sk]
-struct Operand {
-    const float* p;
-    int sr, sk;
-    __device__ __forceinline__ float at(int r, int k) const {
-        return p[r * sr + k * sk];
-    }
-};
-
+// ------------------------------------------------------------- operands
 // W_ij = G_ij * exp(cum_i - cum_j) * dt_j for j <= i < Q, else 0, formed
 // from the head-independent G = C . B^T as the operand is read, so one G
 // serves every head of the CTA (the TPU kernel's order: (G * L) * dt)
@@ -161,141 +108,6 @@ struct DecayedScores {
                                  : 0.f;
     }
 };
-
-enum Shape { kDense, kLowerOut, kLowerA };
-
-// D (M x Nn) = A (M x K) . B (Nn x K)^T over warp tiles of 16 MT x 8 NT:
-// one A fragment feeds NT mma columns, one B fragment MT mma rows, and the
-// CTA's warps take tiles in turn; epi(row, col, value) takes each element
-// with row < M and col < Nn.  M % 16 == 0, Nn % 8 == 0, K % 8 == 0,
-// operands zero-padded.  kLowerOut: 16 x 8 tiles wholly above the
-// diagonal are not formed (epi gets 0 there); kLowerA: A is
-// lower-triangular, so the depth stops at the warp tile's last row.  The
-// three products of the split go to three accumulators, so no two
-// successive mma wait on each other.
-template <int MT, int NT, class OpA, class OpB, class Epilogue>
-__device__ void warp_tiles(OpA A, OpB B, int M, int Nn, int K, Shape shape,
-                           Epilogue epi) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int tm = (M + 16 * MT - 1) / (16 * MT);
-    const int tn = (Nn + 8 * NT - 1) / (8 * NT);
-    for (int tile = warp; tile < tm * tn; tile += kWarps) {
-        const int m0 = tile / tn * 16 * MT, n0 = tile % tn * 8 * NT;
-        bool live[MT][NT];
-        bool any = false;
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                const int mi = m0 + 16 * i, nj = n0 + 8 * j;
-                live[i][j] = mi < M && nj < Nn
-                             && !(shape == kLowerOut && nj >= mi + 16);
-                any = any || live[i][j];
-            }
-        }
-        const int k_end = !any                ? 0
-                          : shape == kLowerA ? min(K, m0 + 16 * MT)
-                                             : K;
-        float acc[3][MT][NT][4];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int i = 0; i < MT; ++i)
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) acc[a][i][j][q] = 0.f;
-#pragma unroll 2
-        for (int k0 = 0; k0 < k_end; k0 += 8) {
-            uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-                const int r = min(m0 + 16 * i, M - 16) + g;
-                split_tf32(A.at(r, k0 + t), ab[i][0], as[i][0]);
-                split_tf32(A.at(r + 8, k0 + t), ab[i][1], as[i][1]);
-                split_tf32(A.at(r, k0 + t + 4), ab[i][2], as[i][2]);
-                split_tf32(A.at(r + 8, k0 + t + 4), ab[i][3], as[i][3]);
-            }
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                const int c = min(n0 + 8 * j, Nn - 8) + g;
-                split_tf32(B.at(c, k0 + t), bb[j][0], bs[j][0]);
-                split_tf32(B.at(c, k0 + t + 4), bb[j][1], bs[j][1]);
-            }
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-#pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    if (!live[i][j]) continue;
-                    mma_tf32(acc[0][i][j], ab[i], bb[j]);
-                    mma_tf32(acc[1][i][j], ab[i], bs[j]);
-                    mma_tf32(acc[2][i][j], as[i], bb[j]);
-                }
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                const int mi = m0 + 16 * i, nj = n0 + 8 * j;
-                if (mi >= M || nj >= Nn) continue;
-                float v[4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q)
-                    v[q] = acc[0][i][j][q]
-                           + (acc[1][i][j][q] + acc[2][i][j][q]);
-                epi(mi + g, nj + 2 * t, v[0]);
-                epi(mi + g, nj + 2 * t + 1, v[1]);
-                epi(mi + g + 8, nj + 2 * t, v[2]);
-                epi(mi + g + 8, nj + 2 * t + 1, v[3]);
-            }
-        }
-    }
-}
-
-// 16 x 32 warp tiles where they still give every warp one (the
-// model-width products), else 16 x 8 tiles, which keep more warps busy on
-// the small products of the DSE's geometry
-template <class OpA, class OpB, class Epilogue>
-__device__ void warp_products(OpA A, OpB B, int M, int Nn, int K,
-                              Shape shape, Epilogue epi) {
-    if ((M / 16) * ((Nn + 31) / 32) >= kWarps)
-        warp_tiles<1, 4>(A, B, M, Nn, K, shape, epi);
-    else
-        warp_tiles<1, 1>(A, B, M, Nn, K, shape, epi);
-}
-
-// ---------------------------------------------------------- chunk terms
-// dt of the chunk (0 past Q) into dts, then cum[i] = sum_{k <= i} dt_k a
-// for i < Qp: a shuffle scan in each warp, then the warps' totals.
-// Qp <= kThreads.  Ends with the block synchronised.
-__device__ void chunk_cumsum(const float* __restrict__ dt, long long tok0,
-                             int H, int h, int Q, int Qp, float a,
-                             float* dts, float* cum, float* wsum) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    float v = 0.f;
-    if (tid < Qp) {
-        const float d = tid < Q ? dt[(tok0 + tid) * H + h] : 0.f;
-        dts[tid] = d;
-        v = d * a;
-    }
-    if (warp * 32 < Qp) {           // whole warps: the shuffles need all
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const float u = __shfl_up_sync(0xffffffffu, v, off);
-            if (lane >= off) v += u;
-        }
-        if (lane == 31) wsum[warp] = v;
-    }
-    __syncthreads();
-    if (tid < Qp) {
-        float base = 0.f;
-        for (int w = 0; w < warp; ++w) base += wsum[w];
-        cum[tid] = base + v;
-    }
-    __syncthreads();
-}
 
 // CTA (chunk, group of hpc heads x slice of P, batch)
 __global__ void __launch_bounds__(kThreads, 2)
@@ -543,15 +355,6 @@ ssd_output_kernel(const float* __restrict__ dt, const float* __restrict__ A,
         });
         __syncthreads();      // a slice is refilled two heads on
     }
-}
-
-cudaError_t opt_in(const void* kernel, long long bytes, long long& granted) {
-    if (bytes <= granted) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err == cudaSuccess) granted = bytes;
-    return err;
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Float32 products on the TF32 tensor cores, and cp.async staging (sm_90a).
 //
-// Shared by csrc/ssd_scan.cu and csrc/flash_attention.cu.  A float32
+// Shared by csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu (through
+// csrc/ssd_common.cuh) and csrc/flash_attention.cu.  A float32
 // operand x is split as big + small: big is x with its low 13 mantissa
 // bits cleared (a TF32 value), small = x - big is exact in float32.  The
 // three products a_big b_big + a_big b_small + a_small b_big on

@@ -34,8 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every library under csrc/, one per kernel package
 SOURCES = ("wami_debayer", "wami_grayscale", "wami_gradient", "wami_steep",
-           "wami_warp", "wami_change_det", "flash_attention", "ssd_scan")
-_HEADERS = ("kernel_export.cuh", "wami_common.cuh", "tf32_mma.cuh")
+           "wami_warp", "wami_change_det", "flash_attention", "ssd_scan",
+           "ssd_scan_bwd")
+_HEADERS = ("kernel_export.cuh", "wami_common.cuh", "tf32_mma.cuh",
+            "ssd_common.cuh")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

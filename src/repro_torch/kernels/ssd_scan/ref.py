@@ -12,7 +12,9 @@ unambiguous.
 
 :func:`ssd_chunked_ref` follows the CUDA kernel's three passes (chunk
 terms in parallel, the sequential state pass, the output) in plain
-PyTorch, so the tests can check the decomposition on the CPU.
+PyTorch, so the tests can check the decomposition on the CPU;
+:func:`ssd_chunked_bwd_ref` does the same for the backward kernel's
+passes (``csrc/ssd_scan_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_ref", "ssd_chunked_ref"]
+__all__ = ["ssd_ref", "ssd_chunked_ref", "ssd_chunked_bwd_ref"]
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -82,3 +84,90 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     inter = torch.einsum("bcin,bchpn->bcihp", Cc, torch.stack(h_in, dim=1))
     y = y + inter * torch.exp(cum)[..., None]
     return y.reshape(Bz, S, H, P), h
+
+
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                        dh_final: Optional[torch.Tensor] = None, *,
+                        chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunked_ref` (no incoming state) in the
+    passes of ``csrc/ssd_scan_bwd.cu``, in the inputs' dtype; S % chunk
+    == 0.  Returns (dx, ddt, dA, dB, dC).
+
+    Per chunk, with W_ij = G_ij exp(cum_i - cum_j) dt_j (i >= j),
+    G = C.B^T and rem_j = exp(cum_Q - cum_j) dt_j:
+
+      1. chunk pass: E_c = sum_i exp(cum_i) dy_i (x) C_i, the gradient
+         the chunk's outputs give the state entering it;
+      2. reverse state pass: g_c, the gradient of the state leaving
+         chunk c, from dh_final back: g_{c-1} = exp(T_c) g_c + E_c; and
+         exp(T_c) <h_in[c], g_c>, the gradient of that chunk's decay;
+      3. per-chunk pass: K = (dy.x^T) * exp(cum_i - cum_j) (i >= j);
+         dx = W^T.dy + rem * (B.g^T); dB = (K dt)^T.C + rem x.g;
+         dC = (K dt).B + exp(cum) dy.h_in; the gradient of cum from the
+         decays, of rem and of the inter-chunk term, whose reverse
+         cumulative sum gives ddt (with the direct term sum_i K_ij G_ij)
+         and dA.
+    """
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = S // chunk
+    Q = chunk
+    xc = x.reshape(Bz, nc, Q, H, P)
+    dyc = dy.reshape(Bz, nc, Q, H, P)
+    dtc = dt.reshape(Bz, nc, Q, H)
+    Bc = B.reshape(Bz, nc, Q, N)
+    Cc = C.reshape(Bz, nc, Q, N)
+    cum = torch.cumsum(dtc * A, dim=2)                          # (b,c,i,h)
+    T = cum[:, :, -1]                                           # (b,c,h)
+    ecum = torch.exp(cum)
+    rem = torch.exp(T[:, :, None, :] - cum) * dtc
+    # the forward's chunk states and the state entering each chunk
+    states = torch.einsum("bcjhp,bcjn->bchpn", xc * rem[..., None], Bc)
+    h = torch.zeros((Bz, H, P, N), dtype=x.dtype, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(T[:, c])[..., None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                             # (b,c,h,p,n)
+    # 1. chunk pass
+    E = torch.einsum("bcihp,bcin->bchpn", dyc * ecum[..., None], Cc)
+    # 2. reverse state pass
+    g = (torch.zeros_like(h) if dh_final is None
+         else dh_final.to(x.dtype))
+    gs, dT_state = [None] * nc, [None] * nc
+    for c in range(nc - 1, -1, -1):
+        gs[c] = g
+        dT_state[c] = torch.exp(T[:, c]) * (h_in[:, c] * g).sum((-2, -1))
+        g = torch.exp(T[:, c])[..., None, None] * g + E[:, c]
+    g = torch.stack(gs, dim=1)                                  # (b,c,h,p,n)
+    dT = torch.stack(dT_state, dim=1)                           # (b,c,h)
+    # 3. per-chunk pass
+    lower = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (b,c,i,j,h)
+    L = torch.where(lower[:, :, None], torch.exp(
+        torch.where(lower[:, :, None], diff, torch.zeros_like(diff))),
+        torch.zeros_like(diff))
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    K = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc) * L
+    KG = K * G[..., None]                                       # (b,c,i,j,h)
+    row = (KG * dtc[:, :, None, :, :]).sum(3)                   # (b,c,i,h)
+    col = KG.sum(2)                                             # (b,c,j,h)
+    U = torch.einsum("bcjn,bchpn->bcjhp", Bc, g)
+    r = (xc * U).sum(-1)                                        # (b,c,j,h)
+    W = G[..., None] * L * dtc[:, :, None, :, :]
+    dx = torch.einsum("bcijh,bcihp->bcjhp", W, dyc) + rem[..., None] * U
+    dG = K * dtc[:, :, None, :, :]
+    dB = (torch.einsum("bcijh,bcin->bcjn", dG, Cc)
+          + torch.einsum("bcjh,bcjhp,bchpn->bcjn", rem, xc, g))
+    Y = torch.einsum("bcin,bchpn->bcihp", Cc, h_in)
+    dC = (torch.einsum("bcijh,bcjn->bcin", dG, Bc)
+          + torch.einsum("bcih,bcihp,bchpn->bcin", ecum, dyc, h_in))
+    dq = ecum * (dyc * Y).sum(-1)                               # (b,c,i,h)
+    dcum = row - dtc * col - r * rem + dq
+    dcum[:, :, -1] += dT + (r * rem).sum(2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddt = col + r * torch.exp(T[:, :, None, :] - cum) + A * da
+    dA = (da * dtc).sum((0, 1, 2))
+    return (dx.reshape(Bz, S, H, P), ddt.reshape(Bz, S, H), dA,
+            dB.reshape(Bz, S, N), dC.reshape(Bz, S, N))

@@ -76,10 +76,11 @@ class HybridLM(LMModule):
     # ------------------------------------------------------------------
     def _forward(self, params, x, positions, states, *, caches=None,
                  cache_len=None, kv_chunk=0, step=False):
-        """Every super-block from ``states`` ((sites, every)-stacked).
-        With ``caches``, each site's attention K/V are written into its
-        cache and every new Mamba state into ``states`` (in place);
-        without, the states are read only (the loss)."""
+        """Every super-block from ``states`` ((sites, every)-stacked; an
+        SSM state of None is a fresh start).  With ``caches``, each site's
+        attention K/V are written into its cache and every new Mamba state
+        into ``caches`` (in place); without, the states are read only (the
+        loss)."""
         cfg = self.cfg
         fn = mamba_step if step else mamba_sequence
 
@@ -102,15 +103,19 @@ class HybridLM(LMModule):
                 x, st_new = inner_fn(sites[g][e], x,
                                      layer_state(states, g, e))
                 if caches is not None:
-                    store_states(states, (g, e), st_new)
+                    store_states(caches, (g, e), st_new)
         return x
 
     # ------------------------------------------------------------------
-    def _stacked_states(self, batch: int):
+    def _stacked_states(self, batch: int, ssm: bool = True):
+        """Zero states of every Mamba layer; without ``ssm``, the SSM
+        state is None (a fresh start)."""
         cfg = self.cfg
         one = init_ssm_state(cfg, batch, self.dtype, self.device)
         lead = (self.n_sites, cfg.shared_attn_every)
-        return {k: a.new_zeros(lead + a.shape) for k, a in one.items()}
+        st = {k: a.new_zeros(lead + a.shape) for k, a in one.items()
+              if ssm or k != "ssm"}
+        return st if ssm else dict(st, ssm=None)
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict]:
         params = self.params()
@@ -123,7 +128,8 @@ class HybridLM(LMModule):
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
         positions = make_positions(B, S, device=self.device)
         kv_chunk = 1024 if S >= 16384 else 0
-        h = self._forward(params, x, positions, self._stacked_states(B),
+        h = self._forward(params, x, positions,
+                          self._stacked_states(B, ssm=False),
                           kv_chunk=kv_chunk)
         ce = masked_ce(self._logits(params, h), targets, mask)
         return ce, {"ce": ce}
@@ -151,8 +157,8 @@ class HybridLM(LMModule):
         positions = make_positions(B, S, device=self.device)
         cache = self.init_cache(B, max_len)
         kv_chunk = 1024 if S >= 16384 else 0
-        h = self._forward(params, x, positions, cache, caches=cache,
-                          cache_len=0, kv_chunk=kv_chunk)
+        h = self._forward(params, x, positions, dict(cache, ssm=None),
+                          caches=cache, cache_len=0, kv_chunk=kv_chunk)
         cache["len"] = S
         logits = self._logits(params, h[:, -1:, :])
         return logits[:, 0], cache

@@ -4,11 +4,14 @@ The JAX package's ``models/ssm.py`` in PyTorch: the chunked SSD dual
 form for training/prefill (quadratic within a chunk, linear across
 chunks: every chunk's own terms at once, then a loop over chunks for
 the carried state in place of its ``lax.scan``) and the
-O(1)-per-token recurrence for decode.  Plain PyTorch, as the JAX
-package's models compute it outside any Pallas kernel; the CUDA SSD
-scan (``csrc/ssd_scan.cu``, bound by ``repro_torch.kernels.ssd_scan``)
-is timed against :func:`_ssd_chunked` but routed nowhere: no path of
-the model launches it.
+O(1)-per-token recurrence for decode.  On the card, the chunked SSD of
+a call with no incoming state (training, a prefill from an empty cache)
+runs as the hand-written kernels, forward and backward
+(``csrc/ssd_scan.cu``, ``csrc/ssd_scan_bwd.cu``, through
+``repro_torch.kernels.ssd_scan.ssd_train``); every other call, and every
+call on the CPU, runs the plain body :func:`_ssd_plain`, the JAX
+package's arithmetic, which the kernels are held against.  The LM
+models start training and prefill from an SSM state of None for that.
 
 While a ``torch.profiler`` records, the mixer (:func:`mamba_sequence`)
 and its chunked SSD (the local body of :func:`_ssd_chunked`) run inside
@@ -27,12 +30,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from ..configs.base import ModelConfig
 from ..core.obs.ranges import device_range
 from ..dist.sharding import (batch_heads_placements, batch_only,
                              constrain_residual, gather_grad_unless_divides,
                              gather_unless_divides, is_dtensor, local_call)
+from ..kernels.ssd_scan import ssd_plain_calls, ssd_train
 from .blocks import Leaf, Params, _dense_init, apply_norm
 
 __all__ = ["init_mamba", "mamba_sequence", "mamba_step", "init_ssm_state"]
@@ -127,7 +132,21 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 @device_range("mamba.ssd")
 def _ssd_local(x, dt, A, Bm, Cm, chunk, h0):
-    """:func:`_ssd_chunked` on one device's tensors."""
+    """:func:`_ssd_chunked` on one device's tensors: the hand-written
+    kernels (``ssd_train``: the forward and its backward) for tensors on
+    the card with no incoming state, else :func:`_ssd_plain`."""
+    on_card = x.is_cuda and not is_fake(x)   # a trace's fakes hold no data
+    if on_card and h0 is None:
+        return ssd_train(x, dt, A, Bm, Cm, chunk=chunk)
+    if on_card:
+        ssd_plain_calls.add()
+    return _ssd_plain(x, dt, A, Bm, Cm, chunk, h0)
+
+
+def _ssd_plain(x, dt, A, Bm, Cm, chunk, h0):
+    """The chunked SSD in plain PyTorch, in float32 (float64 for float64
+    inputs): the plain version the kernels are held against."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -142,8 +161,8 @@ def _ssd_local(x, dt, A, Bm, Cm, chunk, h0):
     def chunks(t):
         return t.reshape((Bsz, n_chunks, Q) + t.shape[2:])
 
-    xc, dtc = chunks(x.float()), chunks(dt)         # (B,c,Q,H,P), (B,c,Q,H)
-    Bc, Cc = chunks(Bm.float()), chunks(Cm.float())  # (B,c,Q,N)
+    xc, dtc = chunks(x.to(f)), chunks(dt)           # (B,c,Q,H,P), (B,c,Q,H)
+    Bc, Cc = chunks(Bm.to(f)), chunks(Cm.to(f))     # (B,c,Q,N)
     a = dtc * A                                     # (B, c, Q, H) log-decay
     cum = torch.cumsum(a, dim=2)                    # within-chunk cumsum
 
@@ -166,7 +185,7 @@ def _ssd_local(x, dt, A, Bm, Cm, chunk, h0):
     decays = torch.exp(total)[..., None, None]               # (B,c,H,1,1)
 
     # the carried state: h' = exp(sum a) h + increment, chunk by chunk
-    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f, device=x.device)
          if h0 is None else h0)
     h_in = []
     for d, inc in zip(torch.unbind(decays, 1), torch.unbind(contrib, 1)):

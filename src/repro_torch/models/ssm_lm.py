@@ -18,8 +18,12 @@ __all__ = ["MambaLM", "layer_state", "store_states"]
 
 
 def layer_state(cache: Dict[str, Any], *idx: int) -> Dict[str, torch.Tensor]:
-    """One layer's SSM and conv states of a stacked cache (views)."""
-    return {"ssm": cache["ssm"][idx], "conv": cache["conv"][idx]}
+    """One layer's SSM and conv states of a stacked cache (views); an SSM
+    state of None (a fresh start: the SSD takes no incoming state) stays
+    None."""
+    ssm = cache["ssm"]
+    return {"ssm": None if ssm is None else ssm[idx],
+            "conv": cache["conv"][idx]}
 
 
 def store_states(cache: Dict[str, Any], idx, states: Dict[str, torch.Tensor]
@@ -79,16 +83,20 @@ class MambaLM(LMModule):
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
-        h, _ = self._forward(params, x, self._stacked_states(tokens.shape[0]))
+        h, _ = self._forward(params, x,
+                             self._stacked_states(tokens.shape[0], ssm=False))
         ce = masked_ce(self._logits(params, h), targets, mask)
         return ce, {"ce": ce}
 
     # ------------------------------------------------------------------
-    def _stacked_states(self, batch: int):
+    def _stacked_states(self, batch: int, ssm: bool = True):
+        """Zero states of every layer; without ``ssm``, the SSM state is
+        None (a fresh start, which the SSD takes as no incoming state)."""
         cfg = self.cfg
         one = init_ssm_state(cfg, batch, self.dtype, self.device)
-        return {k: a.new_zeros((cfg.n_layers,) + a.shape)
-                for k, a in one.items()}
+        st = {k: a.new_zeros((cfg.n_layers,) + a.shape)
+              for k, a in one.items() if ssm or k != "ssm"}
+        return st if ssm else dict(st, ssm=None)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         st = self._stacked_states(batch)
@@ -102,7 +110,7 @@ class MambaLM(LMModule):
         B, S = tokens.shape
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
         cache = self.init_cache(B, S)
-        h, new_states = self._forward(params, x, cache)
+        h, new_states = self._forward(params, x, dict(cache, ssm=None))
         for i, st in enumerate(new_states):
             store_states(cache, i, st)
         cache["len"] = S
