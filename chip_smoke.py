@@ -168,10 +168,13 @@ which fails the run on any error:
      max(1, max|ref|)): gemma2-9b prefill and its last decode step (one
      query over 143 keys, blocks (1, 13)), zamba2-2.7b attention (d 80)
      and SSD (H 80, P 64, N 64, chunk 256 clipped to 128); and the SSD's
-     backward kernel at one layer of the mamba2-780m training cell (20
-     x 2048, H 48, P 64, N 128, chunk 256 run as 4 x 64) beside autograd
-     of the plain body, each of dx, ddt, dA, dB and dC within 1e-4 x
-     max(1, max|its ref|), its bound at the f32 and the 3xTF32 rate;
+     forward and backward kernels at ``ssd_grad_plan``, as training runs
+     them, at one layer of each training cell (mamba2-780m: 20 x 2048,
+     H 48, P 64, N 128; zamba2-2.7b: 8 x 4096, H 80, P 64, N 64; chunk
+     256 run as 4 x 64 in both) beside the plain body and its autograd,
+     y and the final state and each of dx, ddt, dA, dB and dC within
+     1e-4 x max(1, max|its ref|), the backward's bound at the f32 and
+     the 3xTF32 rate;
   7. lm-train — the LM training path (``[lm-train]``: configs ->
      ``build_model`` -> ``init_opt`` -> ``make_train_step`` ->
      ``DataPipeline`` -> ``Watchdog`` -> ``AsyncCheckpointer``, through
@@ -202,7 +205,14 @@ which fails the run on any error:
      full-width drives and read after (the SSD's forward and backward
      the only ones on this path); the reduced and the full-width drives
      each launch both SSD kernels and take the plain SSD body on the
-     card nowhere;
+     card nowhere; the attention's fused and einsum calls on the card
+     are printed for the full-width drives.  Last, Zamba2 in its
+     published form (``zamba2-2.7b-published-smoke``: the published
+     depth and pattern at the smoke widths) in bfloat16, 3 steps of 2 x
+     512 with remat full: every loss finite, its shared attention
+     through the fused path alone (``attn_fused_calls`` > 0,
+     ``attn_plain_calls`` 0) and its SSD through both kernels, with no
+     plain call;
   8. lm-dryrun — the sharded dry run (``[lm-dryrun]``, in a child
      process, ``chip_smoke.py --lm-dryrun-child OUT``, since a process
      group belongs to the whole process; its files under
@@ -2715,9 +2725,16 @@ LM_FLASH_ROWS = (
 )
 LM_SSD_ROW = dict(label="zamba2-2.7b SSD", Bz=4, S=128, H=80, P=64, N=64,
                   chunk=256)
-# the SSD's backward at one layer of the mamba2-780m training cell
+# the SSD's forward and backward at ssd_grad_plan, at one layer of each
+# training cell: mamba2-780m (N 128) and zamba2-2.7b (N 64, where the
+# forward alone would run 2 x 128 sub-chunks and training runs 4 x 64)
 LM_SSD_BWD_ROW = dict(label="mamba2-780m SSD backward", Bz=20, S=2048, H=48,
                       P=64, N=128, chunk=256)
+LM_SSD_BWD_ROWS = (
+    LM_SSD_BWD_ROW,
+    dict(label="zamba2-2.7b SSD backward", Bz=8, S=4096, H=80, P=64, N=64,
+         chunk=256),
+)
 SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
 
@@ -3092,17 +3109,25 @@ def _lm_kernel_times(dev):
                   f"{t['max_abs_err']:.3g} against the model's plain "
                   f"({'within' if t['within_tol'] else 'BEYOND'} the "
                   f"kernel's tolerance {t['tol']:.3g})", flush=True)
-    t = _ssd_bwd_row(dev)
-    out["ssd_scan_bwd"] = {LM_SSD_BWD_ROW["label"]: t}
+    out["ssd_scan_bwd"] = {}
+    for r in LM_SSD_BWD_ROWS:
+        t = out["ssd_scan_bwd"][r["label"]] = _ssd_bwd_row(dev, r)
+        _print_ssd_bwd_row(r, t)
+    return out
+
+
+def _print_ssd_bwd_row(r, t):
     errs = ", ".join(f"{n} {t['max_abs_err'][n]:.3g} (tol {t['tol'][n]:.3g})"
                      for n in SSD_GRAD_NAMES)
-    print(f"[lm-serve] ssd_scan_bwd at {LM_SSD_BWD_ROW['label']}: kernel "
+    print(f"[lm-serve] ssd_scan_bwd at {r['label']} (chunk {r['chunk']} as "
+          f"{r['chunk'] // t['run_chunk']} x {t['run_chunk']}): kernel "
           f"{t['ms']:.5f} ms, autograd of the model's plain "
           f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
           f"({t['bound_by']}), {t['bound_3xtf32_ms']:.6f} ms at the 3xTF32 "
-          f"rate; max|d| against autograd of the model's plain: {errs}",
-          flush=True)
-    return out
+          f"rate; max|d| against autograd of the model's plain: {errs}; "
+          f"its forward at the plan {t['fwd_ms']:.5f} ms, bound "
+          f"{t['fwd_bound_ms']:.6f} ms, max|d| {t['fwd_max_abs_err']:.3g} "
+          f"(tol {t['fwd_tol']:.3g})", flush=True)
 
 
 def _ssd_bwd_work(Bz, S, H, P, N, chunk):
@@ -3121,17 +3146,19 @@ def _ssd_bwd_work(Bz, S, H, P, N, chunk):
     return nbytes, flops
 
 
-def _ssd_bwd_row(dev):
-    """The backward kernel (``ssd_scan_bwd``) at one layer of the
-    mamba2-780m training cell, from the scratch of one forward, against
-    autograd of the plain body on the same inputs and dy."""
+def _ssd_bwd_row(dev, r):
+    """The forward (``ssd_fwd_launch``) and backward (``ssd_scan_bwd``)
+    kernels at ``ssd_grad_plan``, as training runs them, at the row
+    ``r`` (one layer of a training cell): the forward against the plain
+    body, the backward, from the scratch of one forward, against
+    autograd of the plain body on the same inputs and dy; each output
+    within ``SSD_TOL`` of its own max|ref| (at least 1)."""
     import numpy as np
     import torch
     from repro_torch.kernels.build import smem_optin
     from repro_torch.kernels.ssd_scan import (ssd_fwd_launch, ssd_grad_plan,
                                               ssd_scan_bwd_cuda)
     from repro_torch.models.ssm import _ssd_plain
-    r = LM_SSD_BWD_ROW
     Bz, S, H, P, N, chunk = (r[k] for k in ("Bz", "S", "H", "P", "N",
                                             "chunk"))
     args = _ssd_inputs(dev, Bz, S, H, P, N, 23)
@@ -3140,13 +3167,19 @@ def _ssd_bwd_row(dev):
     plan = ssd_grad_plan(Bz, S, H, P, N, chunk, torch.cuda
                          .get_device_properties(dev).multi_processor_count,
                          smem_optin(dev))
-    _, _, scratch = ssd_fwd_launch(*args, plan.fwd)
+    y_k, h_k, scratch = ssd_fwd_launch(*args, plan.fwd)
 
     def kernel():
         return ssd_scan_bwd_cuda(*args, dy, None, scratch, plan)
 
     ins = [t.clone().requires_grad_() for t in args]
-    y, _ = _ssd_plain(*ins, chunk, None)
+    y, h_fin = _ssd_plain(*ins, chunk, None)
+    y_p, h_p = y.detach(), h_fin.detach()
+    fwd_tol = SSD_TOL * max(1.0, float(y_p.abs().max()),
+                            float(h_p.abs().max()))
+    fwd_err = _abs_err(f"{r['label']} forward", (y_k, h_k), (y_p, h_p),
+                       fwd_tol)
+    del y_k, h_k, y_p, h_p
 
     def plain():
         return torch.autograd.grad(y, ins, dy, retain_graph=True)
@@ -3162,14 +3195,20 @@ def _ssd_bwd_row(dev):
     bound, by = _bound(nbytes, flops, FP32_FLOPS_PER_S)
     # the kernel's rate: three TF32 tensor-core products per product
     bound_tc, _ = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    fwd_bytes, fwd_flops = _ssd_work(Bz, S, H, P, N, run)
+    fwd_bound, _ = _bound(fwd_bytes, fwd_flops, FP32_FLOPS_PER_S)
     row = {"ms": _time_ms(dev, kernel, launches=TIME_LAUNCHES_LONG),
            "plain_ms": _time_ms(dev, plain, launches=TIME_LAUNCHES_LONG,
                                 reps=2),
            "library_ms": None, "bound_ms": bound, "bound_by": by,
            "bound_3xtf32_ms": bound_tc, "bytes": nbytes, "flops": flops,
            "max_abs_err": errs, "tol": tols, "chunk": chunk,
-           "run_chunk": run}
-    del y, ins, scratch
+           "run_chunk": run,
+           "fwd_ms": _time_ms(dev, lambda: ssd_fwd_launch(*args, plan.fwd),
+                              launches=TIME_LAUNCHES_LONG),
+           "fwd_bound_ms": fwd_bound, "fwd_max_abs_err": fwd_err,
+           "fwd_tol": fwd_tol}
+    del y, h_fin, ins, scratch
     torch.cuda.empty_cache()
     return row
 
@@ -3267,6 +3306,9 @@ LM_TRAIN_Q8_RUN = dict(batch=4, seq=512, steps=6)
 LM_TRAIN_Q8_KNOBS = dict(microbatches=2, remat="full",
                          quantized_moments=True)
 LM_TRAIN_Q8_RATIO = 3.9         # tests/test_autotune_hlo.py's bar
+# (d) Zamba2 in its published form at the smoke widths, in bf16
+LM_TRAIN_PUBLISHED_ARCH = "zamba2-2.7b-published-smoke"
+LM_TRAIN_PUBLISHED_RUN = dict(batch=2, seq=512, steps=3)
 
 
 def _lm_train_batch(cfg, B, S, seed, dev):
@@ -3784,15 +3826,76 @@ def _lm_train_q8(dev):
     return row
 
 
+def _attn_route_counts(zero=False):
+    """``attention_core``'s calls on the card: through the fused kernel
+    and through the einsum; with ``zero``, set to 0 first."""
+    from repro_torch.models.blocks import attn_fused_calls, attn_plain_calls
+    if zero:
+        attn_fused_calls.calls = attn_plain_calls.calls = 0
+    return {"attn_fused_calls": attn_fused_calls.calls,
+            "attn_plain_calls": attn_plain_calls.calls}
+
+
+def _lm_train_published(dev):
+    """(d): Zamba2 in its published form at the smoke widths, bf16, a few
+    steps of ``make_train_step`` with remat full: the shared attention
+    through the fused path alone, the SSD through both kernels."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.train import TrainStepConfig, make_train_step
+    arch = LM_TRAIN_PUBLISHED_ARCH
+    B, S, n = (LM_TRAIN_PUBLISHED_RUN[k] for k in ("batch", "seq", "steps"))
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
+    params = model.params()
+    opt = init_opt(params)
+    step = make_train_step(model, AdamWConfig(), TrainStepConfig(
+        remat="full", warmup_steps=1, total_steps=n))
+    src = SyntheticLM(vocab=cfg.vocab, seed=0)
+    _ssd_route_counts(zero=True)
+    _attn_route_counts(zero=True)
+    losses = []
+    for i in range(n):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(
+            step=i, shard=0, n_shards=1, batch=B, seq=S).items()}
+        _, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    counts = {**_ssd_route_counts(), **_attn_route_counts()}
+    del model, params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    _require(all(map(math.isfinite, losses)),
+             f"[lm-train] {arch}: losses {losses}")
+    _require_ssd_route("lm-train", arch, counts, True)
+    _require(counts["attn_fused_calls"] > 0
+             and counts["attn_plain_calls"] == 0,
+             f"[lm-train] {arch}: the shared attention did not take the "
+             f"fused path alone ({counts})")
+    print(f"[lm-train] {arch} bfloat16, {n} steps of {B} x {S}, remat "
+          f"full: losses {[round(x, 4) for x in losses]}; attention "
+          f"fused {counts['attn_fused_calls']}, einsum "
+          f"{counts['attn_plain_calls']} calls", flush=True)
+    return {"arch": arch, **LM_TRAIN_PUBLISHED_RUN, "losses": losses,
+            "route": counts}
+
+
 def phase_lm_train(dev, table):
     """The LM training path (``[lm-train]``): every arch reduced on the
     card against the CPU; qwen2-0.5b through the launcher at full width,
-    crashed and resumed; zamba2-2.7b at full width with the three knobs.
-    The kernels' counts are zeroed before the full-width drives and read
-    after: the SSD's forward and backward kernels lie on this path (the
-    Mamba layers' chunked SSD), no other kernel does; the reduced and the
-    full-width drives each launch both and take the plain body
-    nowhere."""
+    crashed and resumed; zamba2-2.7b at full width with the three knobs;
+    the published Zamba2 at the smoke widths in bf16.  The kernels'
+    counts are zeroed before the full-width drives and read after: the
+    SSD's forward and backward kernels lie on this path (the Mamba
+    layers' chunked SSD), no other kernel does; the reduced and the
+    full-width drives each launch both and take the plain body nowhere.
+    The published form's attention takes the fused path alone."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_kernel,
                                               ssd_scan_kernel)
@@ -3808,12 +3911,17 @@ def phase_lm_train(dev, table):
     for c in counters.values():
         c.launches = 0
     _ssd_route_counts(zero=True)
+    _attn_route_counts(zero=True)
     out[LM_TRAIN_ARCH] = _lm_train_full(dev)
     out[LM_TRAIN_Q8_ARCH] = _lm_train_q8(dev)
     out["launches"] = {n: c.launches for n, c in counters.items()}
     route["full_width"] = _ssd_route_counts()
     _require_ssd_route("lm-train", "full width", route["full_width"], True)
     out["ssd_route"] = route
+    out["attn_route"] = {"full_width": _attn_route_counts()}
+    print(f"[lm-train] full width: attention calls on the card "
+          f"{out['attn_route']['full_width']}", flush=True)
+    out[LM_TRAIN_PUBLISHED_ARCH] = _lm_train_published(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-train] {out['seconds']:.1f} s; kernel launches on the "
           f"training path: {out['launches']}", flush=True)
@@ -4338,7 +4446,13 @@ def main(argv=None) -> int:
         "lm_train_launches": lm_train["launches"]["ssd_scan_bwd"],
         "lm_train_route": lm_train["ssd_route"],
         **{key: bwd[key] for key in keep + ("tol",) if key in bwd},
-        "shape": LM_SSD_BWD_ROW["label"]})
+        "shape": LM_SSD_BWD_ROW["label"],
+        "other_shapes": {
+            r["label"]: {key: t[key] for key in keep + (
+                "tol", "fwd_ms", "fwd_bound_ms", "fwd_max_abs_err",
+                "fwd_tol", "run_chunk") if key in t}
+            for r in LM_SSD_BWD_ROWS[1:]
+            for t in [lm_serve["kernels"]["ssd_scan_bwd"][r["label"]]]}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -1,5 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for every launcher
-(the JAX package's ten architectures)."""
+(the JAX package's ten architectures, which :func:`list_archs` and
+:func:`cells` enumerate, and the port's own configurations in
+``PORT_ARCHS``, which ``get_config`` resolves too)."""
 
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ from .qwen2_vl_72b import CONFIG as _qwen2_vl_72b
 from .starcoder2_7b import CONFIG as _starcoder2_7b
 from .whisper_large_v3 import CONFIG as _whisper_large_v3
 from .zamba2_2_7b import CONFIG as _zamba2_2_7b
+from .zamba2_published import CONFIG as _zamba2_published
 
-__all__ = ["ARCHS", "get_config", "get_shape", "list_archs", "cells"]
+__all__ = ["ARCHS", "PORT_ARCHS", "get_config", "get_shape", "list_archs", "cells"]
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (
@@ -27,13 +30,21 @@ ARCHS: Dict[str, ModelConfig] = {
     )
 }
 
+# configurations of the port alone (no JAX counterpart)
+PORT_ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (_zamba2_published,)
+}
+
 
 def get_config(name: str) -> ModelConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
-    return ARCHS[name]
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in PORT_ARCHS:
+        return PORT_ARCHS[name]
+    raise KeyError(f"unknown arch {name!r}; available: "
+                   f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
 
 
 def get_shape(name: str) -> ShapeSpec:

@@ -20,12 +20,13 @@ from .encdec import EncDecLM
 from .hybrid import HybridLM
 from .ssm_lm import MambaLM
 from .transformer import DecoderLM
+from .zamba2 import Zamba2LM
 
 __all__ = ["build_model", "train_batch_specs", "prefill_specs",
            "decode_specs", "params_specs", "make_synthetic_batch"]
 
 _FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": MambaLM,
-             "hybrid": HybridLM, "encdec": EncDecLM}
+             "hybrid": HybridLM, "encdec": EncDecLM, "zamba2": Zamba2LM}
 
 
 def build_model(cfg: ModelConfig, device=None,

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from ..configs.base import ModelConfig
 from ..dist.sharding import (batch_heads_placements, batch_only,
@@ -33,14 +34,16 @@ from ..dist.sharding import (batch_heads_placements, batch_only,
                               gather_grad_unless_divides,
                               gather_unless_divides, is_dtensor, local_call,
                               summed_placements)
+from ..kernels.ssd_scan.grad import CallCount
 from ..utils import leaves_with_paths, resolve_device
 
 __all__ = [
     "init_norm", "apply_norm", "init_attention", "apply_attention",
     "init_mlp", "apply_mlp", "init_moe", "apply_moe",
     "rope", "mrope", "make_positions", "softcap",
-    "attention_core", "Params", "Leaf", "LMModule", "stack_spec",
-    "layer_params", "torch_dtype", "masked_ce", "ce_sum", "embed_lookup",
+    "attention_core", "attn_fused_calls", "attn_plain_calls", "Params",
+    "Leaf", "LMModule", "stack_spec", "layer_params", "torch_dtype",
+    "masked_ce", "ce_sum", "embed_lookup",
 ]
 
 Params = Dict[str, Any]
@@ -363,18 +366,73 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
     return torch.where(ok, 0.0, -1e30)[:, None, :, :]
 
 
+# calls of attention_core on the card: through the fused kernel, and
+# through the float32 einsum
+attn_fused_calls = CallCount()
+attn_plain_calls = CallCount()
+
+_FUSED_MAX_HD = 256
+
+
+def _fused_applies(q, k, v, causal, window, attn_cap, fused_ok):
+    """Whether a call takes :func:`_attention_fused`: bf16 tensors on the
+    card (a trace's fakes hold no data), causal self-attention over plain
+    positions with no cache, no window and no soft-cap, hd <= 256."""
+    return (fused_ok and causal and not window and not attn_cap
+            and q.is_cuda and not is_fake(q)
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[1] == k.shape[1]
+            and q.shape[-1] <= _FUSED_MAX_HD)
+
+
+def _attention_fused(q, k, v, scale):
+    """Causal attention by ``scaled_dot_product_attention`` on the flash
+    or cuDNN backend (never the math one), forward and backward; K/V
+    heads repeated to the query heads' count."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=scale)
+    return o.transpose(1, 2)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
-                   attn_cap: float = 0.0, kv_chunk: int = 0) -> torch.Tensor:
+                   attn_cap: float = 0.0, kv_chunk: int = 0,
+                   scale: Optional[float] = None,
+                   fused_ok: bool = False) -> torch.Tensor:
     """Grouped-query attention core.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); H a multiple of K.  Scores
     and softmax in float32 whatever the model dtype (q is scaled in its
-    own dtype first, as the JAX package scales it).  ``kv_chunk`` > 0
-    switches to the online-softmax streaming form (exact, bounded
-    memory).  On DTensors the body runs on each rank's batch rows and
-    heads (:func:`~..dist.sharding.batch_heads_placements`).
+    own dtype first, as the JAX package scales it), by ``scale``
+    (default ``1 / sqrt(hd)``).  ``kv_chunk`` > 0 switches to the
+    online-softmax streaming form (exact, bounded memory).
+
+    ``fused_ok`` is the caller's leave to take the fused kernel, given
+    only where q_pos and kv_pos are both 0..S-1 in every row
+    (self-attention with no cache).  Then a causal call on bf16 tensors
+    on the card with no window or soft-cap and hd <= 256 runs as the
+    fused kernel (:func:`_attention_fused`, memory linear in S, its
+    backward on the card too) and counts in :data:`attn_fused_calls`;
+    every other call on the card counts in :data:`attn_plain_calls`.
+    The training losses of the Zamba2 models give it; the dense and MoE
+    decoders' do not, since the 40-step loss drop of qwen2-0.5b's
+    full-width bf16 drive in ``chip_smoke.py`` (0.05 at least, 0.052 with
+    the einsum at its seed) swings with the rounding: 0.03-0.11 over
+    three seeds on either path, 0.027 with the fused kernel at that seed,
+    though the two paths' first gradients lie equally close to a float32
+    model's (cosine 0.99965 each).  On DTensors the body runs on
+    each rank's batch rows and heads
+    (:func:`~..dist.sharding.batch_heads_placements`), always as the
+    einsum.
     """
     if is_dtensor(q) or is_dtensor(k):
         mesh = (q if is_dtensor(q) else k).device_mesh
@@ -382,13 +440,19 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            (q.shape[2], k.shape[2]))
         body = functools.partial(attention_core, causal=causal,
                                  window=window, attn_cap=attn_cap,
-                                 kv_chunk=kv_chunk)
+                                 kv_chunk=kv_chunk, scale=scale)
         return local_call(body, mesh, (q, k, v, q_pos, kv_pos),
                           (head, head, head, row, row), head)
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if _fused_applies(q, k, v, causal, window, attn_cap, fused_ok):
+        attn_fused_calls.add()
+        return _attention_fused(q, k, v, scale)
+    if q.is_cuda and not is_fake(q):
+        attn_plain_calls.add()
     qf = (q * scale).float().reshape(B, Sq, K, G, hd)
     kf = k.float()
     vf = v.float()
@@ -442,12 +506,15 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_len: Optional[int] = None,
                     causal: bool = True, window: int = 0,
-                    kv_chunk: int = 0,
+                    kv_chunk: int = 0, fused_ok: bool = False,
                     ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Full attention block (projections + core + output).
 
     Modes:
       * self-attention over x (training / prefill): kv=None, cache=None;
+        ``fused_ok`` lets the core take its fused kernel, given only
+        where ``positions`` are 0..S-1 in every row (see
+        :func:`attention_core`);
       * cross-attention: kv = (k_pre, v_pre) precomputed encoder K/V;
       * cached decode: ``cache=(k_cache, v_cache)`` with ``cache_len``
         giving the number of valid positions; x is the new token(s).
@@ -507,7 +574,9 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     q, k, v = constrain_attn_qkv(q, k, v)
     o = attention_core(q, k, v, pos2d, kv_pos, causal=causal, window=window,
-                       attn_cap=cfg.attn_softcap, kv_chunk=kv_chunk)
+                       attn_cap=cfg.attn_softcap, kv_chunk=kv_chunk,
+                       fused_ok=(fused_ok and kv is None
+                                        and cache is None))
     # the row-parallel product's partial sums meet the residual stream
     # here (Megatron's all-reduce; a reduce-scatter under sequence
     # parallelism); the identity on one device

@@ -62,20 +62,22 @@ class HybridLM(LMModule):
 
     # ------------------------------------------------------------------
     def _shared_block(self, params, x, positions, *, cache=None,
-                      cache_len=None, kv_chunk=0):
+                      cache_len=None, kv_chunk=0, fused_ok=False):
         cfg = self.cfg
         h = apply_norm(params["shared_ln1"], x, cfg.norm_kind)
         a, new_cache = apply_attention(params["shared_attn"], cfg, h,
                                        positions, cache=cache,
                                        cache_len=cache_len, causal=True,
-                                       kv_chunk=kv_chunk)
+                                       kv_chunk=kv_chunk,
+                                       fused_ok=fused_ok)
         x = x + a
         h = apply_norm(params["shared_ln2"], x, cfg.norm_kind)
         return x + apply_mlp(params["shared_mlp"], cfg, h), new_cache
 
     # ------------------------------------------------------------------
     def _forward(self, params, x, positions, states, *, caches=None,
-                 cache_len=None, kv_chunk=0, step=False):
+                 cache_len=None, kv_chunk=0, step=False,
+                 fused_ok=False):
         """Every super-block from ``states`` ((sites, every)-stacked; an
         SSM state of None is a fresh start).  With ``caches``, each site's
         attention K/V are written into its cache and every new Mamba state
@@ -98,7 +100,8 @@ class HybridLM(LMModule):
                 params, x, positions,
                 cache=None if caches is None else (caches["k"][g],
                                                    caches["v"][g]),
-                cache_len=cache_len, kv_chunk=kv_chunk)
+                cache_len=cache_len, kv_chunk=kv_chunk,
+                fused_ok=fused_ok)
             for e in range(cfg.shared_attn_every):
                 x, st_new = inner_fn(sites[g][e], x,
                                      layer_state(states, g, e))
@@ -130,7 +133,7 @@ class HybridLM(LMModule):
         kv_chunk = 1024 if S >= 16384 else 0
         h = self._forward(params, x, positions,
                           self._stacked_states(B, ssm=False),
-                          kv_chunk=kv_chunk)
+                          kv_chunk=kv_chunk, fused_ok=True)
         ce = masked_ce(self._logits(params, h), targets, mask)
         return ce, {"ce": ce}
 

@@ -202,11 +202,13 @@ def _ssd_plain(x, dt, A, Bm, Cm, chunk, h0):
 
 @device_range("mamba.mixer")
 def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
-                   state: Optional[Dict[str, torch.Tensor]] = None
+                   state: Optional[Dict[str, torch.Tensor]] = None,
+                   norm_eps: float = 1e-6
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba2 block (training / prefill).
 
-    u: (B, S, d_model) -> (y, final_state).
+    u: (B, S, d_model) -> (y, final_state); ``norm_eps`` is the gated
+    RMSNorm's epsilon.
     """
     B, S, d = u.shape
     di, N, H, P = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads(), cfg.ssm_head_dim
@@ -223,13 +225,13 @@ def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
     y = y + p["D"][None, None, :, None] * xh.float()
     y = gather_grad_unless_divides(y.reshape(B, S, di), 2, H).to(u.dtype)
     y = y * F.silu(z)
-    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
+    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm", norm_eps)
     out = constrain_residual(y @ p["out_proj"])
     return out, {"ssm": h_fin, "conv": conv_state}
 
 
 def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
-               state: Dict[str, torch.Tensor]
+               state: Dict[str, torch.Tensor], norm_eps: float = 1e-6
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token recurrent step (decode).  u: (B, 1, d_model).  The
     SSM state stays float32 whatever the model dtype."""
@@ -252,6 +254,6 @@ def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), h_new)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(B, di).to(u.dtype) * F.silu(z)
-    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm")
+    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm", norm_eps)
     out = constrain_residual((y @ p["out_proj"])[:, None, :])
     return out, {"ssm": h_new, "conv": new_conv}
