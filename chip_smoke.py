@@ -2736,6 +2736,19 @@ LM_SSD_BWD_ROWS = (
          chunk=256),
 )
 SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# the Mamba2 mixer's epilogue (csrc/mamba_gate_norm.cu), forward and
+# backward, at one layer of each training cell in bf16 with the model's
+# views, beside the model's plain lines and autograd of them; against the
+# plain versions in float32 on the same inputs, the float32 outputs (dy,
+# dD) within 1e-4 of their own max|ref|, each element of the bf16 ones
+# within one bf16 rounding (2^-8) of its own |ref| and of the RMS of ref
+LM_GATE_NORM_ROWS = (
+    dict(label="mamba2-780m gate norm", Bz=20, S=2048, H=48, P=64, N=128),
+    dict(label="zamba2-2.7b gate norm", Bz=8, S=4096, H=80, P=64, N=64),
+)
+GATE_NORM_NAMES = ("out", "dy", "dxh", "dz", "dD", "dscale")
+GATE_NORM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+GATE_NORM_EPS = 1e-5
 
 
 def _lm_batch(cfg, B, S, seed, dev):
@@ -2752,6 +2765,23 @@ def _lm_batch(cfg, B, S, seed, dev):
         batch["mrope_positions"] = np.broadcast_to(
             np.arange(S, dtype=np.int32), (3, B, S)).copy()
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _elementwise_err(what, got, want, rel):
+    """The worst |got - want| / (|want| + rms(want)) in float64: each
+    element's error against ``rel`` of its own size, with ``rel`` of the
+    RMS as room where it is near 0; raises at ``rel`` or beyond, or on a
+    non-finite output."""
+    import torch
+    _require(got.shape == want.shape, (what, got.shape, want.shape))
+    _require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    w = want.double()
+    room = w.abs() + w.square().mean().sqrt()
+    worst = float(((got.double() - w).abs() / room).max())
+    if not worst < rel:
+        raise RuntimeError(f"{what}: |d| / (|ref| + rms) = {worst:.3g} "
+                           f">= {rel:.3g}")
+    return worst
 
 
 def _rel(got, want):
@@ -3113,7 +3143,102 @@ def _lm_kernel_times(dev):
     for r in LM_SSD_BWD_ROWS:
         t = out["ssd_scan_bwd"][r["label"]] = _ssd_bwd_row(dev, r)
         _print_ssd_bwd_row(r, t)
+    out["mamba_gate_norm"] = {}
+    for r in LM_GATE_NORM_ROWS:
+        t = out["mamba_gate_norm"][r["label"]] = _gate_norm_row(dev, r)
+        errs = ", ".join(
+            f"{n} {t['max_abs_err'][n]:.3g} (tol {t['tol'][n]:.3g})"
+            if n not in t["rel_err"] else
+            f"{n} {t['max_abs_err'][n]:.3g}, worst |d| / (|ref| + rms) "
+            f"{t['rel_err'][n]:.3g} (tol {t['tol'][n]:.3g})"
+            for n in GATE_NORM_NAMES)
+        print(f"[lm-serve] mamba_gate_norm at {r['label']}: forward "
+              f"{t['ms']:.5f} ms (bound {t['bound_ms']:.6f}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}%), backward "
+              f"{t['bwd_ms']:.5f} ms (bound {t['bwd_bound_ms']:.6f}, "
+              f"{100 * t['bwd_bound_ms'] / t['bwd_ms']:.1f}%); the model's "
+              f"plain lines {t['plain_ms']:.5f} ms, autograd of them "
+              f"{t['plain_bwd_ms']:.5f} ms; max|d| against the float32 "
+              f"chain: {errs}", flush=True)
     return out
+
+
+def _gate_norm_inputs(dev, Bz, S, H, P, N, seed):
+    """The epilogue's inputs as a training layer holds them: y float32;
+    xh a view of the conv's output (Bz, S, H P + 2 N) and z of in_proj's
+    (Bz, S, 2 H P + 2 N + H), bf16; D, scale and dout, from a seeded
+    generator on the card."""
+    import torch
+    W = H * P
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def draw(shape, s=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dtype)
+    y = draw((Bz, S, H, P), dtype=torch.float32)
+    xh = draw((Bz, S, W + 2 * N))[..., :W].reshape(Bz, S, H, P)
+    z = draw((Bz, S, 2 * W + 2 * N + H), 2.0)[..., :W]
+    D = 1 + draw((H,), 0.3, torch.float32)
+    return (y, xh, z, D, draw((W,), 0.2), draw((Bz, S, W)))
+
+
+def _gate_norm_row(dev, r):
+    """The epilogue's forward and backward kernels at the row ``r`` (one
+    layer of a training cell): times beside their bounds (bytes: y, xh, z
+    read and out written once forward; y, xh, z, dout read and dy, dxh,
+    dz written once backward), beside the model's plain lines and
+    autograd of them; each output against the plain versions
+    (``gate_norm_ref``, ``gate_norm_bwd_ref``) on the same inputs in
+    float32: a float32 one within ``GATE_NORM_TOL`` of its own max|ref|,
+    each element of a bf16 one within it of its own |ref| and of the RMS
+    of ref."""
+    import torch
+    from repro_torch.kernels.mamba_gate_norm import (gate_norm_bwd_cuda,
+                                                     gate_norm_bwd_ref,
+                                                     gate_norm_fwd_cuda,
+                                                     gate_norm_ref)
+    from repro_torch.models.ssm import _gate_norm_plain
+    Bz, S, H, P, N = (r[k] for k in ("Bz", "S", "H", "P", "N"))
+    y, xh, z, D, scale, dout = _gate_norm_inputs(dev, Bz, S, H, P, N, 25)
+    eps = GATE_NORM_EPS
+    out, rstd = gate_norm_fwd_cuda(y, xh, z, D, scale, eps, save_rstd=True)
+    got = (out,) + gate_norm_bwd_cuda(y, xh, z, dout, D, scale, rstd)
+    f32 = [t.float() for t in (y, xh, z, D, scale, dout)]
+    want = (gate_norm_ref(*f32[:5], eps),) + gate_norm_bwd_ref(
+        *f32[:3], f32[5], *f32[3:5], eps)
+    del f32
+    errs, tols, rels = {}, {}, {}
+    for n, g, w in zip(GATE_NORM_NAMES, got, want):
+        tol = GATE_NORM_TOL[str(g.dtype).split(".")[-1]]
+        if g.dtype == torch.float32:
+            tols[n] = tol * float(w.abs().max())
+            errs[n] = _abs_err(f"{r['label']} {n}", g, w, tols[n])
+        else:
+            tols[n] = tol
+            rels[n] = _elementwise_err(f"{r['label']} {n}", g, w, tol)
+            errs[n] = float((g.double() - w.double()).abs().max())
+    del got, want
+    rows, W = Bz * S, H * P
+    fwd_bytes = rows * W * (4 + 2 + 2 + 2)
+    bwd_bytes = rows * W * (4 + 2 + 2 + 2 + 4 + 2 + 2)
+    leaves = [t.detach().requires_grad_() for t in (y, xh, z, D, scale)]
+    plain = _gate_norm_plain(*leaves, eps, torch.bfloat16)
+    row = {"ms": _time_ms(dev, lambda: gate_norm_fwd_cuda(
+               y, xh, z, D, scale, eps, save_rstd=True)),
+           "bwd_ms": _time_ms(dev, lambda: gate_norm_bwd_cuda(
+               y, xh, z, dout, D, scale, rstd)),
+           "plain_ms": _time_ms(dev, lambda: _gate_norm_plain(
+               y, xh, z, D, scale, eps, torch.bfloat16)),
+           "plain_bwd_ms": _time_ms(dev, lambda: torch.autograd.grad(
+               plain, leaves, dout, retain_graph=True),
+               launches=TIME_LAUNCHES_LONG, reps=2),
+           "library_ms": None,
+           "bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "bwd_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+           "max_abs_err": errs, "rel_err": rels, "tol": tols}
+    del plain, leaves, y, xh, z, dout, rstd, out
+    torch.cuda.empty_cache()
+    return row
 
 
 def _print_ssd_bwd_row(r, t):
@@ -3240,6 +3365,34 @@ def _require_ssd_route(tag, drive, counts, backward):
              f"route ({counts}; backward launches expected: {backward})")
 
 
+def _gate_norm_route_counts(zero=False):
+    """The Mamba mixers' epilogue on the card: the forward's and the
+    backward's kernel launches and the calls that took the plain lines
+    (``gate_norm_plain_calls``); with ``zero``, set to 0 first."""
+    from repro_torch.kernels.mamba_gate_norm import (gate_norm_bwd_kernel,
+                                                     gate_norm_kernel,
+                                                     gate_norm_plain_calls)
+    if zero:
+        gate_norm_kernel.launches = gate_norm_bwd_kernel.launches = 0
+        gate_norm_plain_calls.calls = 0
+    return {"gate_norm": gate_norm_kernel.launches,
+            "gate_norm_bwd": gate_norm_bwd_kernel.launches,
+            "gate_norm_plain_calls": gate_norm_plain_calls.calls}
+
+
+def _require_gate_norm_route(tag, drive, counts, backward):
+    """The Mamba mixers' epilogue took the kernels in ``drive``: the
+    forward launched, the backward launched iff ``backward``, and no call
+    on the card took the plain lines."""
+    print(f"[{tag}] {drive}: epilogue forward, backward launches and "
+          f"plain calls on the card {counts}", flush=True)
+    _require(counts["gate_norm"] > 0 and counts["gate_norm_plain_calls"] == 0
+             and (counts["gate_norm_bwd"] > 0) == backward,
+             f"[{tag}] {drive}: the mixers' epilogue did not take the "
+             f"kernel route ({counts}; backward launches expected: "
+             f"{backward})")
+
+
 def phase_lm_serve(dev):
     """The LM serving path (``[lm-serve]``): every arch reduced on the
     card against the CPU, the served models at full width, and the two
@@ -3252,17 +3405,26 @@ def phase_lm_serve(dev):
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     _ssd_route_counts(zero=True)
+    _gate_norm_route_counts(zero=True)
     out = {"reduced": _lm_reduced(dev)}
     route = {"reduced": _ssd_route_counts()}
+    epilogue = {"reduced": _gate_norm_route_counts()}
     _require_ssd_route("lm-serve", "reduced", route["reduced"], False)
+    _require_gate_norm_route("lm-serve", "reduced", epilogue["reduced"],
+                             False)
     _ssd_route_counts(zero=True)
+    _gate_norm_route_counts(zero=True)
     for arch, chain, chain_tol in LM_SERVE_ARCHS:
         out[arch] = _lm_full_width(dev, get_config(arch), chain, chain_tol)
         gc.collect()
         torch.cuda.empty_cache()
     route["full_width"] = _ssd_route_counts()
+    epilogue["full_width"] = _gate_norm_route_counts()
     _require_ssd_route("lm-serve", "full width", route["full_width"], False)
+    _require_gate_norm_route("lm-serve", "full width",
+                             epilogue["full_width"], False)
     out["ssd_route"] = route
+    out["gate_norm_route"] = epilogue
     out["kernels"] = _lm_kernel_times(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-serve] {out['seconds']:.1f} s", flush=True)
@@ -3860,6 +4022,7 @@ def _lm_train_published(dev):
         remat="full", warmup_steps=1, total_steps=n))
     src = SyntheticLM(vocab=cfg.vocab, seed=0)
     _ssd_route_counts(zero=True)
+    _gate_norm_route_counts(zero=True)
     _attn_route_counts(zero=True)
     losses = []
     for i in range(n):
@@ -3867,13 +4030,15 @@ def _lm_train_published(dev):
             step=i, shard=0, n_shards=1, batch=B, seq=S).items()}
         _, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
-    counts = {**_ssd_route_counts(), **_attn_route_counts()}
+    counts = {**_ssd_route_counts(), **_gate_norm_route_counts(),
+              **_attn_route_counts()}
     del model, params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
     _require(all(map(math.isfinite, losses)),
              f"[lm-train] {arch}: losses {losses}")
     _require_ssd_route("lm-train", arch, counts, True)
+    _require_gate_norm_route("lm-train", arch, counts, True)
     _require(counts["attn_fused_calls"] > 0
              and counts["attn_plain_calls"] == 0,
              f"[lm-train] {arch}: the shared attention did not take the "
@@ -3905,19 +4070,28 @@ def phase_lm_train(dev, table):
                     ssd_scan_bwd=ssd_scan_bwd_kernel)
     t0 = time.perf_counter()
     _ssd_route_counts(zero=True)
+    _gate_norm_route_counts(zero=True)
     out = {"reduced": _lm_train_reduced(dev)}
     route = {"reduced": _ssd_route_counts()}
+    epilogue = {"reduced": _gate_norm_route_counts()}
     _require_ssd_route("lm-train", "reduced", route["reduced"], True)
+    _require_gate_norm_route("lm-train", "reduced", epilogue["reduced"],
+                             True)
     for c in counters.values():
         c.launches = 0
     _ssd_route_counts(zero=True)
+    _gate_norm_route_counts(zero=True)
     _attn_route_counts(zero=True)
     out[LM_TRAIN_ARCH] = _lm_train_full(dev)
     out[LM_TRAIN_Q8_ARCH] = _lm_train_q8(dev)
     out["launches"] = {n: c.launches for n, c in counters.items()}
     route["full_width"] = _ssd_route_counts()
+    epilogue["full_width"] = _gate_norm_route_counts()
     _require_ssd_route("lm-train", "full width", route["full_width"], True)
+    _require_gate_norm_route("lm-train", "full width",
+                             epilogue["full_width"], True)
     out["ssd_route"] = route
+    out["gate_norm_route"] = epilogue
     out["attn_route"] = {"full_width": _attn_route_counts()}
     print(f"[lm-train] full width: attention calls on the card "
           f"{out['attn_route']['full_width']}", flush=True)
@@ -4453,6 +4627,19 @@ def main(argv=None) -> int:
                 "fwd_tol", "run_chunk") if key in t}
             for r in LM_SSD_BWD_ROWS[1:]
             for t in [lm_serve["kernels"]["ssd_scan_bwd"][r["label"]]]}})
+    # the Mamba2 mixer's epilogue, forward and backward, at both cells'
+    # layers
+    rows = lm_serve["kernels"]["mamba_gate_norm"]
+    kernels.append({
+        "name": "mamba_gate_norm", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_gate_norm.cu",
+        "replaces": None, "lm_serve_route": lm_serve["gate_norm_route"],
+        "lm_train_route": lm_train["gate_norm_route"],
+        "shapes": {label: {key: t[key] for key in (
+            "ms", "bound_ms", "bwd_ms", "bwd_bound_ms", "plain_ms",
+            "plain_bwd_ms", "bytes", "bwd_bytes", "max_abs_err", "rel_err",
+            "tol")}
+            for label, t in rows.items()}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

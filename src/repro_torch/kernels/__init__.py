@@ -9,7 +9,10 @@ CUDA tensor, the plain version on a CPU tensor).
     ``wami_grayscale``, ``wami_gradient``, ``wami_steep`` (steepest
     descent and the Hessian), ``wami_warp`` and ``wami_change_det``;
   * the fleet app: ``flash_attention`` (streaming-softmax attention on
-    the model layout) and ``ssd_scan`` (the Mamba2 SSD chunked scan).
+    the model layout) and ``ssd_scan`` (the Mamba2 SSD chunked scan);
+  * the LM path: ``mamba_gate_norm`` (the Mamba2 mixer's epilogue,
+    forward and backward; ``ref.py``, ``kernel.py`` and ``grad.py``, the
+    model's differentiable call).
 
 ``build.py`` compiles every source on first use.
 """

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every library under csrc/, one per kernel package
 SOURCES = ("wami_debayer", "wami_grayscale", "wami_gradient", "wami_steep",
            "wami_warp", "wami_change_det", "flash_attention", "ssd_scan",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "mamba_gate_norm")
 _HEADERS = ("kernel_export.cuh", "wami_common.cuh", "tf32_mma.cuh",
             "ssd_common.cuh")
 

@@ -12,6 +12,11 @@ runs as the hand-written kernels, forward and backward
 call on the CPU, runs the plain body :func:`_ssd_plain`, the JAX
 package's arithmetic, which the kernels are held against.  The LM
 models start training and prefill from an SSM state of None for that.
+The mixer's epilogue after the SSD (the D skip, the SiLU gate and the
+gated RMSNorm, :func:`_gate_norm`) runs on the card as one pair of
+hand-written kernels, forward and backward (``csrc/mamba_gate_norm.cu``,
+through ``repro_torch.kernels.mamba_gate_norm.gate_norm``); on the CPU,
+and on DTensors, as the plain lines :func:`_gate_norm_plain`.
 
 While a ``torch.profiler`` records, the mixer (:func:`mamba_sequence`)
 and its chunked SSD (the local body of :func:`_ssd_chunked`) run inside
@@ -37,6 +42,7 @@ from ..core.obs.ranges import device_range
 from ..dist.sharding import (batch_heads_placements, batch_only,
                              constrain_residual, gather_grad_unless_divides,
                              gather_unless_divides, is_dtensor, local_call)
+from ..kernels.mamba_gate_norm import gate_norm, gate_norm_plain_calls
 from ..kernels.ssd_scan import ssd_plain_calls, ssd_train
 from .blocks import Leaf, Params, _dense_init, apply_norm
 
@@ -222,12 +228,34 @@ def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
     xh = gather_unless_divides(xs, 2, H).reshape(B, S, H, P)
     h0 = state["ssm"] if state else None
     y, h_fin = _ssd_chunked(xh.float(), dt, A, Bm, Cm, cfg.ssm_chunk, h0)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = gather_grad_unless_divides(y.reshape(B, S, di), 2, H).to(u.dtype)
-    y = y * F.silu(z)
-    y = apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm", norm_eps)
+    y = _gate_norm(y, xh, z, p["D"], p["norm_scale"], norm_eps, u.dtype)
     out = constrain_residual(y @ p["out_proj"])
     return out, {"ssm": h_fin, "conv": conv_state}
+
+
+def _gate_norm(y, xh, z, D, scale, eps, dtype):
+    """The mixer's epilogue, from the SSD's float32 y (B,S,H,P) to the
+    out_proj input (B,S,H P) in ``dtype``: the D skip, the SiLU gate and
+    the gated RMSNorm.  Tensors on the card take the hand-written kernels
+    (``gate_norm``: forward and backward), which raise ``ValueError`` for
+    dtypes or widths they do not take; DTensors on the card take
+    :func:`_gate_norm_plain`, counted in ``gate_norm_plain_calls``; the
+    CPU and a trace's fakes take it uncounted."""
+    if y.is_cuda and not is_fake(y):       # a trace's fakes hold no data
+        if not is_dtensor(y):
+            return gate_norm(y, xh, z, D, scale, eps)
+        gate_norm_plain_calls.add()
+    return _gate_norm_plain(y, xh, z, D, scale, eps, dtype)
+
+
+def _gate_norm_plain(y, xh, z, D, scale, eps, dtype):
+    """:func:`_gate_norm` in plain PyTorch, the JAX package's lines: the
+    kernels are held against it."""
+    B, S, H, _ = xh.shape
+    y = y + D[None, None, :, None] * xh.float()
+    y = gather_grad_unless_divides(y.reshape(B, S, -1), 2, H).to(dtype)
+    y = y * F.silu(z)
+    return apply_norm({"scale": scale}, y, "rmsnorm", eps)
 
 
 def mamba_step(p: Params, cfg: ModelConfig, u: torch.Tensor,

@@ -89,3 +89,31 @@ def test_port_imports_neither_jax_nor_repro():
                  "bench.roofline_table"):
         assert f"repro_torch.{name}" in got["modules"], name
     assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
+
+
+_GATE_NORM_PROBE = r"""
+import importlib, json, sys
+names = ["repro_torch.kernels.mamba_gate_norm",
+         "repro_torch.kernels.mamba_gate_norm.kernel",
+         "repro_torch.kernels.mamba_gate_norm.grad",
+         "repro_torch.kernels.mamba_gate_norm.ref", "repro_torch.models.ssm"]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_gate_norm_kernel_package_imports_neither_jax_nor_repro():
+    """The Mamba2 epilogue's kernel package, with the model module that
+    routes to it, imports alone and loads none of JAX's modules."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _GATE_NORM_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == [], f"modules loaded by the port: {got['bad']}"
