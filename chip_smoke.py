@@ -160,10 +160,9 @@ which fails the run on any error:
      decode round differently in bfloat16) and again in float32 (the
      weights upcast) within 1e-3; layer 0 (zamba2: the shared block and
      the first Mamba layer) in float32, card against CPU, within 1e-4;
-     parameter GB, init s, prefill ms, ms a decode step, tok/s and peak
-     memory printed.  Last, flash attention and the SSD scan timed at
-     the served shapes beside the models' own ``attention_core`` and
-     plain SSD body (``_ssd_plain``) on the same inputs, max|d|
+     parameter GB, init s and peak memory printed.  Last, flash
+     attention and the SSD scan timed at the served shapes beside the
+     models' own ``attention_core`` and plain SSD body (``_ssd_plain``) on the same inputs, max|d|
      printed against the kernels' tolerances (bf16 2e-2; SSD 1e-4 x
      max(1, max|ref|)): gemma2-9b prefill and its last decode step (one
      query over 143 keys, blocks (1, 13)), zamba2-2.7b attention (d 80)
@@ -194,25 +193,23 @@ which fails the run on any error:
      20, resumed by the launcher, its steps 21-40 within 1e-2 of the
      uninterrupted run's losses, the step-20 checkpoint restored onto
      the card bit for bit and written again by ``save_async`` into the
-     same files (snapshot ms, write s and GB printed); the loop's ms a
-     step with and without its per-step loss read, kernels a step, the
-     device's idle share and the top kernels by device time
-     (``torch.profiler``), and the models' layer split (one ``unbind``
-     a stacked leaf) against indexing each layer, in turns; last
+     same files (snapshot ms, write s and GB printed); last
      zamba2-2.7b at full width, 6 steps of 4 x 512 with microbatches 2, remat full and
      8-bit moments: finite, its float32 state at least 3.9x the 8-bit
-     state's bytes.  The kernels' counts are zeroed before the
-     full-width drives and read after (the SSD's forward and backward
+     state's bytes.  The kernels' launches over the full-width drives
+     are printed (the SSD's and the epilogue's, forward and backward,
      the only ones on this path); the reduced and the full-width drives
-     each launch both SSD kernels and take the plain SSD body on the
-     card nowhere; the attention's fused and einsum calls on the card
-     are printed for the full-width drives.  Last, Zamba2 in its
+     each launch both SSD kernels and both epilogue kernels and take
+     neither plain version on the card (``kernels/route.py``'s
+     ``route_counts()``, read before and after each drive); the
+     attention's fused and einsum calls on the card are printed for the
+     full-width drives.  Last, Zamba2 in its
      published form (``zamba2-2.7b-published-smoke``: the published
      depth and pattern at the smoke widths) in bfloat16, 3 steps of 2 x
      512 with remat full: every loss finite, its shared attention
-     through the fused path alone (``attn_fused_calls`` > 0,
-     ``attn_plain_calls`` 0) and its SSD through both kernels, with no
-     plain call;
+     through the fused path alone (``attention.kernel`` > 0,
+     ``attention.plain`` 0) and its SSD and epilogue through both
+     kernels each, with no plain call;
   8. lm-dryrun — the sharded dry run (``[lm-dryrun]``, in a child
      process, ``chip_smoke.py --lm-dryrun-child OUT``, since a process
      group belongs to the whole process; its files under
@@ -1817,6 +1814,11 @@ def _drive_numbers(session, res):
             "theta": [f"{res.theta_min:.2f}", f"{res.theta_max:.2f}"]}
 
 
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
 def _wall_ratios(fresh, committed):
     """Per stage over the points both recordings hold: (points, median,
     smallest and largest ratio of the fresh wall to the committed)."""
@@ -2916,29 +2918,6 @@ def _layer_check(model, dev, seed):
         return _rel(run(dev), run(torch.device("cpu")))
 
 
-def _step_profile(dev, fn, calls=3, top=None):
-    """(kernels, device ms) per call of ``fn`` from a ``torch.profiler``
-    trace of the card alone over ``calls`` calls; (0, 0.0) where the
-    trace holds no device time.  With ``top``, also the ``top`` kernels
-    by device time: ``[(name, ms a call, launches a call), ...]``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize(dev)
-    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
-    out = (sum(e.count for e in rows) // calls,
-           sum(e.device_time_total for e in rows) / calls / 1e3)
-    if top is None:
-        return out
-    rows.sort(key=lambda e: -e.device_time_total)
-    return out + ([(e.key[:90], e.device_time_total / calls / 1e3,
-                    e.count // calls) for e in rows[:top]],)
-
-
 def _chain_rel(model, full, S):
     """prefill(full)'s last logits against prefill(full[:, :S]) and one
     decode step per remaining token, max|d| / max|ref|."""
@@ -2956,7 +2935,7 @@ def _chain_rel(model, full, S):
 def _lm_full_width(dev, cfg, chain, chain_tol):
     """One served model at full width: built on the card from a seeded
     generator, six SyntheticLM requests through ServeEngine, and the
-    checks and times of the [lm-serve] phase."""
+    checks of the [lm-serve] phase."""
     import dataclasses
     import torch
     from repro_torch.data import SyntheticLM
@@ -2980,15 +2959,11 @@ def _lm_full_width(dev, cfg, chain, chain_tol):
     eng = ServeEngine(model, slots=slots, prompt_len=S, max_new=n_new)
     for rid in range(n_req):
         eng.submit(rid, prompts[rid, :S])
-    t0 = time.perf_counter()
     results = eng.run()
-    torch.cuda.synchronize(dev)
-    serve_s = time.perf_counter() - t0
     _require(sorted(results) == list(range(n_req)), sorted(results))
     _require(all(len(v) == n_new and all(0 <= t < cfg.vocab for t in v)
                  for v in results.values()),
              f"{cfg.name}: every request gets {n_new} tokens in the vocab")
-    toks = n_req * n_new
 
     batch = {"tokens": torch.from_numpy(prompts[:slots, :S]).to(dev)}
     gen = generate(model, batch, max_new=n_new)
@@ -2997,19 +2972,6 @@ def _lm_full_width(dev, cfg, chain, chain_tol):
              f"{cfg.name}: generate's first token is the prefill's argmax")
     _require(all(results[r] == gen[r].tolist() for r in range(slots)),
              f"{cfg.name}: the engine's first burst is generate's tokens")
-    prefill_ms = _wall_ms(dev, lambda: model.prefill(batch,
-                                                     max_len=S + n_new),
-                          reps=3)
-    _, cache = model.prefill(batch, max_len=S + n_new)
-    nxt = gen[:, :1]
-
-    def decode_steps():
-        c = dict(cache, len=S)
-        for _ in range(n_new - 1):
-            _, c = model.decode_step(nxt, c)
-    decode_ms = _wall_ms(dev, decode_steps, reps=3) / (n_new - 1)
-    step_kernels, step_device_ms = _step_profile(
-        dev, lambda: model.decode_step(nxt, dict(cache, len=S)))
 
     # prefill(S + chain) against prefill(S) + chain decode steps
     full = torch.from_numpy(prompts[:slots, :S + chain]).to(dev)
@@ -3034,33 +2996,22 @@ def _lm_full_width(dev, cfg, chain, chain_tol):
              f"{cfg.name} in float32: prefill({S + chain}) against "
              f"prefill({S}) + {chain} decode steps: rel {chain_f32:.3g} > "
              f"{LM_CHAIN_F32_TOL}")
-    row = {"param_gb": param_gb, "init_s": init_s, "serve_s": serve_s,
-           "tok_per_s": toks / serve_s, "requests": n_req, "slots": slots,
-           "prompt_len": S, "max_new": n_new, "prefill_ms": prefill_ms,
-           "decode_ms_per_step": decode_ms,
-           "decode_step_kernels": step_kernels,
-           "decode_step_device_ms": step_device_ms,
-           "decode_idle_share": (1.0 - step_device_ms / decode_ms
-                                 if step_kernels else None),
+    row = {"param_gb": param_gb, "init_s": init_s, "requests": n_req,
+           "slots": slots, "prompt_len": S, "max_new": n_new,
            "chain_steps": chain,
            "chain_rel": chain_rel, "chain_tol": chain_tol,
            "chain_f32_rel": chain_f32, "layer0_f32_rel": layer_rel,
            "peak_gb": peak_gb, "sample_rid0": results[0]}
     print(f"[lm-serve] {cfg.name} full width {cfg.dtype}: {param_gb:.2f} GB "
           f"of parameters, init {init_s:.3f} s; {n_req} requests x {n_new} "
-          f"tokens over {slots} slots (prompt {S}) in {serve_s:.3f} s = "
-          f"{toks / serve_s:.1f} tok/s; prefill ({slots} x {S}) "
-          f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step "
-          + (f"({step_kernels} kernels, {step_device_ms:.2f} ms of device "
-             f"time: idle {1.0 - step_device_ms / decode_ms:.1%}); "
-             if step_kernels else "(no device time in the trace); ") +
+          f"tokens over {slots} slots (prompt {S}); "
           f"prefill({S + chain}) against prefill({S}) + {chain} decode "
           f"steps rel {chain_rel:.3g} (<= {chain_tol}), in float32 "
           f"{chain_f32:.3g} (<= {LM_CHAIN_F32_TOL}); layer 0 f32 card "
           f"against CPU rel {layer_rel:.3g} (<= {LM_LAYER_TOL}); peak "
           f"{peak_gb:.2f} GB allocated; rid 0: {results[0][:8]}",
           flush=True)
-    del model, eng, cache
+    del model, eng
     return row
 
 
@@ -3338,93 +3289,52 @@ def _ssd_bwd_row(dev, r):
     return row
 
 
-def _ssd_route_counts(zero=False):
-    """The model SSD's route on the card: the forward's and the
-    backward's kernel launches and the calls that took the plain body
-    (``ssd_plain_calls``); with ``zero``, set to 0 first."""
-    from repro_torch.kernels.ssd_scan import (ssd_plain_calls,
-                                              ssd_scan_bwd_kernel,
-                                              ssd_scan_kernel)
-    if zero:
-        ssd_scan_kernel.launches = ssd_scan_bwd_kernel.launches = 0
-        ssd_plain_calls.calls = 0
-    return {"ssd_scan": ssd_scan_kernel.launches,
-            "ssd_scan_bwd": ssd_scan_bwd_kernel.launches,
-            "ssd_plain_calls": ssd_plain_calls.calls}
+def _route_growth(before):
+    """What each count of ``route_counts()`` (``kernels/route.py``: the
+    routes' calls on the card and their kernels' launches) gained since
+    ``before``, an earlier reading."""
+    from repro_torch.kernels.route import route_counts
+    return {k: v - before[k] for k, v in route_counts().items()}
 
 
-def _require_ssd_route(tag, drive, counts, backward):
-    """The Mamba layers' chunked SSD took the kernels in ``drive``: the
-    forward launched, the backward launched iff ``backward``, and no call
-    on the card took the plain body."""
-    print(f"[{tag}] {drive}: SSD forward, backward launches and plain "
-          f"calls on the card {counts}", flush=True)
-    _require(counts["ssd_scan"] > 0 and counts["ssd_plain_calls"] == 0
-             and (counts["ssd_scan_bwd"] > 0) == backward,
-             f"[{tag}] {drive}: the model's SSD did not take the kernel "
-             f"route ({counts}; backward launches expected: {backward})")
-
-
-def _gate_norm_route_counts(zero=False):
-    """The Mamba mixers' epilogue on the card: the forward's and the
-    backward's kernel launches and the calls that took the plain lines
-    (``gate_norm_plain_calls``); with ``zero``, set to 0 first."""
-    from repro_torch.kernels.mamba_gate_norm import (gate_norm_bwd_kernel,
-                                                     gate_norm_kernel,
-                                                     gate_norm_plain_calls)
-    if zero:
-        gate_norm_kernel.launches = gate_norm_bwd_kernel.launches = 0
-        gate_norm_plain_calls.calls = 0
-    return {"gate_norm": gate_norm_kernel.launches,
-            "gate_norm_bwd": gate_norm_bwd_kernel.launches,
-            "gate_norm_plain_calls": gate_norm_plain_calls.calls}
-
-
-def _require_gate_norm_route(tag, drive, counts, backward):
-    """The Mamba mixers' epilogue took the kernels in ``drive``: the
-    forward launched, the backward launched iff ``backward``, and no call
-    on the card took the plain lines."""
-    print(f"[{tag}] {drive}: epilogue forward, backward launches and "
-          f"plain calls on the card {counts}", flush=True)
-    _require(counts["gate_norm"] > 0 and counts["gate_norm_plain_calls"] == 0
-             and (counts["gate_norm_bwd"] > 0) == backward,
-             f"[{tag}] {drive}: the mixers' epilogue did not take the "
-             f"kernel route ({counts}; backward launches expected: "
-             f"{backward})")
+def _require_routes(tag, drive, grew, backward):
+    """The Mamba layers' chunked SSD and their mixers' epilogue took the
+    kernels in ``drive`` (``grew``, from ``_route_growth``): each
+    forward launched, each backward launched iff ``backward``, and no
+    call on the card took a plain version."""
+    print(f"[{tag}] {drive}: routes on the card {grew}", flush=True)
+    for route, fwd in (("ssd", "ssd_scan"), ("gate_norm", "gate_norm")):
+        _require(grew[f"{fwd}.launches"] > 0 and grew[f"{route}.plain"] == 0
+                 and (grew[f"{fwd}_bwd.launches"] > 0) == backward,
+                 f"[{tag}] {drive}: the model's {route} did not take the "
+                 f"kernel route ({grew}; backward launches expected: "
+                 f"{backward})")
 
 
 def phase_lm_serve(dev):
     """The LM serving path (``[lm-serve]``): every arch reduced on the
     card against the CPU, the served models at full width, and the two
-    kernels at their shapes.  Frees each model before the next.  The SSD
-    route's counts are zeroed before the reduced and the full-width
-    drives and read after: the Mamba layers' prefills launch the forward
-    kernel, never the backward, and take the plain body nowhere."""
+    kernels at their shapes.  Frees each model before the next.  Over the
+    reduced and over the full-width drives the Mamba layers' prefills
+    launch the SSD's and the epilogue's forward kernels, never their
+    backward, and take neither plain version."""
     import gc
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.route import route_counts
     t0 = time.perf_counter()
-    _ssd_route_counts(zero=True)
-    _gate_norm_route_counts(zero=True)
+    before = route_counts()
     out = {"reduced": _lm_reduced(dev)}
-    route = {"reduced": _ssd_route_counts()}
-    epilogue = {"reduced": _gate_norm_route_counts()}
-    _require_ssd_route("lm-serve", "reduced", route["reduced"], False)
-    _require_gate_norm_route("lm-serve", "reduced", epilogue["reduced"],
-                             False)
-    _ssd_route_counts(zero=True)
-    _gate_norm_route_counts(zero=True)
+    routes = {"reduced": _route_growth(before)}
+    _require_routes("lm-serve", "reduced", routes["reduced"], False)
+    before = route_counts()
     for arch, chain, chain_tol in LM_SERVE_ARCHS:
         out[arch] = _lm_full_width(dev, get_config(arch), chain, chain_tol)
         gc.collect()
         torch.cuda.empty_cache()
-    route["full_width"] = _ssd_route_counts()
-    epilogue["full_width"] = _gate_norm_route_counts()
-    _require_ssd_route("lm-serve", "full width", route["full_width"], False)
-    _require_gate_norm_route("lm-serve", "full width",
-                             epilogue["full_width"], False)
-    out["ssd_route"] = route
-    out["gate_norm_route"] = epilogue
+    routes["full_width"] = _route_growth(before)
+    _require_routes("lm-serve", "full width", routes["full_width"], False)
+    out["routes"] = routes
     out["kernels"] = _lm_kernel_times(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-serve] {out['seconds']:.1f} s", flush=True)
@@ -3458,10 +3368,6 @@ LM_TRAIN_RUN = dict(steps=40, batch=16, seq=128, ckpt_every=20)
 LM_TRAIN_KILL_AT = 20
 LM_TRAIN_LOSS_DROP = 0.05
 LM_TRAIN_RESUME_TOL = 1e-2      # bf16; atomics in the embedding's backward
-LM_TRAIN_TIMED_STEPS = 6
-# the timed turns of the loop, in an order that balances drift
-LM_TRAIN_TURNS = ("unbind", "no_read", "index", "index", "no_read", "unbind")
-LM_TRAIN_TOP_KERNELS = 12       # kernels by device time printed a step
 # (c) the three knobs (b) leaves off, at full width and depth
 LM_TRAIN_Q8_ARCH = "zamba2-2.7b"
 LM_TRAIN_Q8_RUN = dict(batch=4, seq=512, steps=6)
@@ -3610,32 +3516,25 @@ def _lm_train_reduced(dev):
 
 
 @contextlib.contextmanager
-def _recorded_steps(launcher):
+def _recorded_norms(launcher):
     """Within the block, every step the launcher ``launcher`` builds
-    notes the host clock as it is entered and keeps its grad norm (a
-    device tensor: no sync).  Yields ``(entries, grad_norms)``."""
-    entries, norms = [], []
+    keeps its grad norm (a device tensor: no sync).  Yields the list."""
+    norms = []
     make = launcher.make_train_step
 
     def recording(*args, **kwargs):
         step = make(*args, **kwargs)
 
         def recorded(params, opt, batch):
-            entries.append(time.perf_counter())
             params, opt, metrics = step(params, opt, batch)
             norms.append(metrics["grad_norm"])
             return params, opt, metrics
         return recorded
     launcher.make_train_step = recording
     try:
-        yield entries, norms
+        yield norms
     finally:
         launcher.make_train_step = make
-
-
-def _median(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2] if xs else float("nan")
 
 
 def _leaf_bits(t):
@@ -3644,42 +3543,6 @@ def _leaf_bits(t):
     t = t.detach().cpu().contiguous()
     width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     return t.view(width[t.element_size()])
-
-
-def _print_top(arch, top):
-    for name, ms, n in top or ():
-        print(f"[lm-train] {arch} a step: {ms:8.3f} ms in {n:5d} x {name}",
-              flush=True)
-
-
-def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree
-
-
-def _indexed_layers(tree):
-    """The models' layer split before ``unstack_layers``: each layer's
-    parameters indexed from the stacked leaves (``layer_params``), so
-    autograd adds a zero-filled gradient of the whole leaf per layer."""
-    from repro_torch.models.blocks import layer_params
-    return [layer_params(tree, i) for i in range(_first_leaf(tree).shape[0])]
-
-
-@contextlib.contextmanager
-def _layer_split(split):
-    """Within the block the models split their stacked layers with
-    ``split`` in place of ``unstack_layers``."""
-    from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-    mods = (encdec, hybrid, ssm_lm, transformer)
-    kept = [m.unstack_layers for m in mods]
-    for m in mods:
-        m.unstack_layers = split
-    try:
-        yield
-    finally:
-        for m, f in zip(mods, kept):
-            m.unstack_layers = f
 
 
 def _lm_train_child(root):
@@ -3693,8 +3556,7 @@ def _lm_train_child(root):
 def _lm_train_full(dev):
     """(b): qwen2-0.5b at full width through ``launch.train.run``:
     uninterrupted, then crashed after its step-20 checkpoint and resumed;
-    the checkpoint round trip; the loop's time, the host sync's cost and
-    the device's idle share."""
+    the checkpoint round trip."""
     import gc
     import signal
 
@@ -3703,11 +3565,8 @@ def _lm_train_full(dev):
     from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                         restore)
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch import train as launcher
-    from repro_torch.models import build_model
-    from repro_torch.optim import AdamWConfig, init_opt
-    from repro_torch.train import TrainStepConfig, make_train_step
+    from repro_torch.optim import init_opt
     from repro_torch.utils import tree_leaves
     cfg = get_config(LM_TRAIN_ARCH)
     steps, B, S = (LM_TRAIN_RUN[k] for k in ("steps", "batch", "seq"))
@@ -3720,7 +3579,7 @@ def _lm_train_full(dev):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with _recorded_steps(launcher) as (entries, norms):
+    with _recorded_norms(launcher) as norms:
         params, losses = launcher.run(LM_TRAIN_ARCH, device=dev,
                                       **LM_TRAIN_RUN)
     row["run_s"] = time.perf_counter() - t0
@@ -3728,9 +3587,6 @@ def _lm_train_full(dev):
     row["param_gb"] = sum(p.numel() * p.element_size()
                           for p in tree_leaves(params)) / 1e9
     norms = torch.stack(norms).float().cpu()
-    gaps = np.diff(entries)[1:]          # the first step warms up
-    row["loop_ms_per_step"] = _median(gaps) * 1e3
-    row["tok_per_s"] = B * S / _median(gaps)
     row["losses"], row["grad_norms"] = losses, norms.tolist()
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     row["loss_first5"], row["loss_last5"] = first, last
@@ -3826,81 +3682,12 @@ def _lm_train_full(dev):
     del state, like, params
     gc.collect()
     torch.cuda.empty_cache()
-
-    # the launcher's loop timed apart, in turns before any profiler
-    # (LM_TRAIN_TURNS): "unbind", the step as the launcher runs it, its
-    # loss read every step; "no_read", one sync at the end; "index", the
-    # models' layers indexed from the stacked leaves (the layer split
-    # before unstack_layers).  Host wall and process CPU ms a step.
-    model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
-    params = model.params()
-    opt = [init_opt(params)]
-    step = make_train_step(model, AdamWConfig(), TrainStepConfig(
-        remat="none", warmup_steps=max(1, steps // 20), total_steps=steps))
-    src = SyntheticLM(vocab=cfg.vocab, seed=0)
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                src.batch(step=i, shard=0, n_shards=1, batch=B,
-                          seq=S).items()}
-               for i in range(LM_TRAIN_TIMED_STEPS)]
-
-    def one(i=0, read=True):
-        _, opt[0], m = step(params, opt[0], batches[i % len(batches)])
-        return float(m["loss"]) if read else m["loss"]
-
-    from repro_torch.models.blocks import unstack_layers
-    turns = {name: [] for name in LM_TRAIN_TURNS}
-    for name in LM_TRAIN_TURNS:
-        with _layer_split(_indexed_layers if name == "index"
-                          else unstack_layers):
-            one(0)                      # warm, after a switch of split
-            torch.cuda.synchronize(dev)
-            t0, c0 = time.perf_counter(), time.process_time()
-            for i in range(LM_TRAIN_TIMED_STEPS):
-                one(i, read=name != "no_read")
-            torch.cuda.synchronize(dev)
-            turns[name].append({
-                "ms_per_step": (time.perf_counter() - t0) * 1e3
-                / LM_TRAIN_TIMED_STEPS,
-                "cpu_ms_per_step": (time.process_time() - c0) * 1e3
-                / LM_TRAIN_TIMED_STEPS})
-    row["turns"] = turns
-    row["ms_per_step_read"] = _median(
-        [t["ms_per_step"] for t in turns["unbind"]])
-    row["ms_per_step_no_read"] = _median(
-        [t["ms_per_step"] for t in turns["no_read"]])
-    row["step_kernels"], row["step_device_ms"], row["top_kernels"] = (
-        _step_profile(dev, one, top=LM_TRAIN_TOP_KERNELS))
-    row["idle_share"] = (1.0 - row["step_device_ms"] / row["ms_per_step_read"]
-                         if row["step_kernels"] else None)
-    with _layer_split(_indexed_layers):
-        row["index_kernels"], row["index_device_ms"] = _step_profile(dev, one)
-    row["tflop_per_step"] = 6 * sum(p.numel() for p in tree_leaves(
-        params)) * B * S / 1e12
-    del model, params, opt, step, batches
-    gc.collect()
-    torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
-    idle = ("no device time in the trace" if row["idle_share"] is None else
-            f"{row['step_kernels']} kernels, {row['step_device_ms']:.2f} ms "
-            f"of device time: idle {row['idle_share']:.1%}")
     print(f"[lm-train] {LM_TRAIN_ARCH} full width {cfg.dtype} "
           f"({row['param_gb']:.2f} GB of parameters): {steps} steps of "
-          f"{B} x {S} in {row['run_s']:.2f} s, the launcher's loop "
-          f"{row['loop_ms_per_step']:.2f} ms a step = "
-          f"{row['tok_per_s']:.0f} tok/s, peak {row['peak_gb']:.2f} GB; "
-          f"loss {first:.4f} -> {last:.4f} (first and last 5); timed apart "
-          f"{row['ms_per_step_read']:.2f} ms a step with the per-step loss "
-          f"read, {row['ms_per_step_no_read']:.2f} without; {idle}",
+          f"{B} x {S} in {row['run_s']:.2f} s, peak {row['peak_gb']:.2f} "
+          f"GB; loss {first:.4f} -> {last:.4f} (first and last 5)",
           flush=True)
-    _print_top(LM_TRAIN_ARCH, row["top_kernels"])
-    print(f"[lm-train] {LM_TRAIN_ARCH} in turns {LM_TRAIN_TURNS}, ms a "
-          f"step (host wall / process CPU): " + "; ".join(
-              f"{name} " + ", ".join(f"{t['ms_per_step']:.2f} / "
-                                     f"{t['cpu_ms_per_step']:.2f}"
-                                     for t in ts)
-              for name, ts in turns.items()) +
-          f"; the index split launches {row['index_kernels']} kernels, "
-          f"{row['index_device_ms']:.2f} ms on the device", flush=True)
     print(f"[lm-train] {LM_TRAIN_ARCH} killed after LATEST read "
           f"{LM_TRAIN_KILL_AT} ({row['child_s']:.1f} s), resumed in "
           f"{row['resume_s']:.1f} s: steps {LM_TRAIN_KILL_AT + 1}-{steps} "
@@ -3932,35 +3719,24 @@ def _lm_train_q8(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     model = build_model(cfg, dev, torch.Generator(dev).manual_seed(0))
     params = model.params()
-    opt = [init_opt_q8(params)]
+    opt = init_opt_q8(params)
     step = make_train_step(model, AdamWConfig(), TrainStepConfig(
         warmup_steps=1, total_steps=n, **LM_TRAIN_Q8_KNOBS))
     src = SyntheticLM(vocab=cfg.vocab, seed=0)
-    losses, norms, walls = [], [], []
+    losses, norms = [], []
     for i in range(n):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(
             step=i, shard=0, n_shards=1, batch=B, seq=S).items()}
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        _, opt[0], m = step(params, opt[0], batch)
+        _, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
-        walls.append(time.perf_counter() - t0)
         norms.append(float(m["grad_norm"]))
-    kernels, device_ms, top = _step_profile(
-        dev, lambda: step(params, opt[0], batch), calls=1,
-        top=LM_TRAIN_TOP_KERNELS)
     numel = [p.numel() for p in tree_leaves(params)]
     f32_bytes = 2 * 4 * sum(numel) + 4
-    q8_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt[0]))
-    ms = _median(walls[1:]) * 1e3
+    q8_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt))
     row = {"arch": LM_TRAIN_Q8_ARCH, **LM_TRAIN_Q8_RUN, **LM_TRAIN_Q8_KNOBS,
            "param_gb": sum(p.numel() * p.element_size()
                            for p in tree_leaves(params)) / 1e9,
            "losses": losses, "grad_norms": norms,
-           "ms_per_step": ms, "tok_per_s": B * S / ms * 1e3,
-           "step_kernels": kernels, "step_device_ms": device_ms,
-           "top_kernels": top,
-           "idle_share": 1.0 - device_ms / ms if kernels else None,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "f32_state_gb": f32_bytes / 1e9, "q8_state_gb": q8_bytes / 1e9,
            "state_ratio": f32_bytes / q8_bytes}
@@ -3973,41 +3749,28 @@ def _lm_train_q8(dev):
     _require(row["state_ratio"] >= LM_TRAIN_Q8_RATIO,
              f"[lm-train] {LM_TRAIN_Q8_ARCH}: f32 state / q8 state "
              f"{row['state_ratio']:.3f} < {LM_TRAIN_Q8_RATIO}")
-    idle = ("no device time in the trace" if row["idle_share"] is None else
-            f"{kernels} kernels, {device_ms:.1f} ms of device time: idle "
-            f"{row['idle_share']:.1%}")
     print(f"[lm-train] {LM_TRAIN_Q8_ARCH} full width {cfg.dtype} "
           f"({row['param_gb']:.2f} GB of parameters), {n} steps of {B} x "
-          f"{S}, microbatches 2, remat full, 8-bit moments: "
-          f"{ms:.1f} ms a step = {row['tok_per_s']:.0f} tok/s, peak "
-          f"{row['peak_gb']:.2f} GB; {idle}; losses "
+          f"{S}, microbatches 2, remat full, 8-bit moments: peak "
+          f"{row['peak_gb']:.2f} GB; losses "
           f"{[round(x, 4) for x in losses]}; state {row['q8_state_gb']:.2f} "
           f"GB q8 against {row['f32_state_gb']:.2f} GB f32 "
           f"({row['state_ratio']:.3f}x)", flush=True)
-    _print_top(LM_TRAIN_Q8_ARCH, top)
     return row
-
-
-def _attn_route_counts(zero=False):
-    """``attention_core``'s calls on the card: through the fused kernel
-    and through the einsum; with ``zero``, set to 0 first."""
-    from repro_torch.models.blocks import attn_fused_calls, attn_plain_calls
-    if zero:
-        attn_fused_calls.calls = attn_plain_calls.calls = 0
-    return {"attn_fused_calls": attn_fused_calls.calls,
-            "attn_plain_calls": attn_plain_calls.calls}
 
 
 def _lm_train_published(dev):
     """(d): Zamba2 in its published form at the smoke widths, bf16, a few
     steps of ``make_train_step`` with remat full: the shared attention
-    through the fused path alone, the SSD through both kernels."""
+    through the fused path alone, the SSD and the epilogue through both
+    of their kernels."""
     import dataclasses
     import gc
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.route import route_counts
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, init_opt
     from repro_torch.train import TrainStepConfig, make_train_step
@@ -4021,80 +3784,67 @@ def _lm_train_published(dev):
     step = make_train_step(model, AdamWConfig(), TrainStepConfig(
         remat="full", warmup_steps=1, total_steps=n))
     src = SyntheticLM(vocab=cfg.vocab, seed=0)
-    _ssd_route_counts(zero=True)
-    _gate_norm_route_counts(zero=True)
-    _attn_route_counts(zero=True)
+    before = route_counts()
     losses = []
     for i in range(n):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(
             step=i, shard=0, n_shards=1, batch=B, seq=S).items()}
         _, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
-    counts = {**_ssd_route_counts(), **_gate_norm_route_counts(),
-              **_attn_route_counts()}
+    grew = _route_growth(before)
     del model, params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
     _require(all(map(math.isfinite, losses)),
              f"[lm-train] {arch}: losses {losses}")
-    _require_ssd_route("lm-train", arch, counts, True)
-    _require_gate_norm_route("lm-train", arch, counts, True)
-    _require(counts["attn_fused_calls"] > 0
-             and counts["attn_plain_calls"] == 0,
+    _require_routes("lm-train", arch, grew, True)
+    _require(grew["attention.kernel"] > 0 and grew["attention.plain"] == 0,
              f"[lm-train] {arch}: the shared attention did not take the "
-             f"fused path alone ({counts})")
+             f"fused path alone ({grew})")
     print(f"[lm-train] {arch} bfloat16, {n} steps of {B} x {S}, remat "
           f"full: losses {[round(x, 4) for x in losses]}; attention "
-          f"fused {counts['attn_fused_calls']}, einsum "
-          f"{counts['attn_plain_calls']} calls", flush=True)
+          f"fused {grew['attention.kernel']}, einsum "
+          f"{grew['attention.plain']} calls", flush=True)
     return {"arch": arch, **LM_TRAIN_PUBLISHED_RUN, "losses": losses,
-            "route": counts}
+            "routes": grew}
 
 
 def phase_lm_train(dev, table):
     """The LM training path (``[lm-train]``): every arch reduced on the
     card against the CPU; qwen2-0.5b through the launcher at full width,
     crashed and resumed; zamba2-2.7b at full width with the three knobs;
-    the published Zamba2 at the smoke widths in bf16.  The kernels'
-    counts are zeroed before the full-width drives and read after: the
-    SSD's forward and backward kernels lie on this path (the Mamba
-    layers' chunked SSD), no other kernel does; the reduced and the
-    full-width drives each launch both and take the plain body nowhere.
-    The published form's attention takes the fused path alone."""
+    the published Zamba2 at the smoke widths in bf16.  Every kernel's
+    launches over the full-width drives are printed: the SSD's and the
+    epilogue's forward and backward kernels lie on this path (the Mamba
+    layers' mixer), no other kernel does; the reduced and the full-width
+    drives each launch all four and take neither plain version.  The
+    published form's attention takes the fused path alone."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mamba_gate_norm import (gate_norm_bwd_kernel,
+                                                     gate_norm_kernel)
+    from repro_torch.kernels.route import route_counts
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_kernel,
                                               ssd_scan_kernel)
     counters = {k["name"]: k["counter"] for k in table}
     counters.update(flash_attention=flash_attention_kernel,
                     ssd_scan=ssd_scan_kernel,
-                    ssd_scan_bwd=ssd_scan_bwd_kernel)
+                    ssd_scan_bwd=ssd_scan_bwd_kernel,
+                    gate_norm=gate_norm_kernel,
+                    gate_norm_bwd=gate_norm_bwd_kernel)
     t0 = time.perf_counter()
-    _ssd_route_counts(zero=True)
-    _gate_norm_route_counts(zero=True)
+    before = route_counts()
     out = {"reduced": _lm_train_reduced(dev)}
-    route = {"reduced": _ssd_route_counts()}
-    epilogue = {"reduced": _gate_norm_route_counts()}
-    _require_ssd_route("lm-train", "reduced", route["reduced"], True)
-    _require_gate_norm_route("lm-train", "reduced", epilogue["reduced"],
-                             True)
-    for c in counters.values():
-        c.launches = 0
-    _ssd_route_counts(zero=True)
-    _gate_norm_route_counts(zero=True)
-    _attn_route_counts(zero=True)
+    routes = {"reduced": _route_growth(before)}
+    _require_routes("lm-train", "reduced", routes["reduced"], True)
+    launched = {n: c.launches for n, c in counters.items()}
+    before = route_counts()
     out[LM_TRAIN_ARCH] = _lm_train_full(dev)
     out[LM_TRAIN_Q8_ARCH] = _lm_train_q8(dev)
-    out["launches"] = {n: c.launches for n, c in counters.items()}
-    route["full_width"] = _ssd_route_counts()
-    epilogue["full_width"] = _gate_norm_route_counts()
-    _require_ssd_route("lm-train", "full width", route["full_width"], True)
-    _require_gate_norm_route("lm-train", "full width",
-                             epilogue["full_width"], True)
-    out["ssd_route"] = route
-    out["gate_norm_route"] = epilogue
-    out["attn_route"] = {"full_width": _attn_route_counts()}
-    print(f"[lm-train] full width: attention calls on the card "
-          f"{out['attn_route']['full_width']}", flush=True)
+    out["launches"] = {n: c.launches - launched[n]
+                       for n, c in counters.items()}
+    routes["full_width"] = _route_growth(before)
+    _require_routes("lm-train", "full width", routes["full_width"], True)
+    out["routes"] = routes
     out[LM_TRAIN_PUBLISHED_ARCH] = _lm_train_published(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm-train] {out['seconds']:.1f} s; kernel launches on the "
@@ -4598,9 +4348,9 @@ def main(argv=None) -> int:
         if "bound_3xtf32_ms" in t:
             entry["bound_3xtf32_ms"] = t["bound_3xtf32_ms"]
         if k["name"] == "ssd_scan":
-            # the model's route: launches and plain calls a drive
-            entry["lm_serve_route"] = lm_serve["ssd_route"]
-            entry["lm_train_route"] = lm_train["ssd_route"]
+            # the models' routes: calls and launches a drive
+            entry["lm_serve_route"] = lm_serve["routes"]
+            entry["lm_train_route"] = lm_train["routes"]
         # at the served models' shapes, beside the models' plain versions
         entry["lm_serve"] = {
             label: {key: r[key] for key in keep + ("within_tol",)
@@ -4618,7 +4368,7 @@ def main(argv=None) -> int:
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu", "replaces": None,
         "lm_train_launches": lm_train["launches"]["ssd_scan_bwd"],
-        "lm_train_route": lm_train["ssd_route"],
+        "lm_train_route": lm_train["routes"],
         **{key: bwd[key] for key in keep + ("tol",) if key in bwd},
         "shape": LM_SSD_BWD_ROW["label"],
         "other_shapes": {
@@ -4633,8 +4383,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "mamba_gate_norm", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_gate_norm.cu",
-        "replaces": None, "lm_serve_route": lm_serve["gate_norm_route"],
-        "lm_train_route": lm_train["gate_norm_route"],
+        "replaces": None, "lm_serve_route": lm_serve["routes"],
+        "lm_train_route": lm_train["routes"],
         "shapes": {label: {key: t[key] for key in (
             "ms", "bound_ms", "bwd_ms", "bwd_bound_ms", "plain_ms",
             "plain_bwd_ms", "bytes", "bwd_bytes", "max_abs_err", "rel_err",

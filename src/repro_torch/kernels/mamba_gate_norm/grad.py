@@ -2,27 +2,19 @@
 forward kernel and the backward kernel of ``csrc/mamba_gate_norm.cu`` in
 one ``torch.autograd.Function``.
 
-:func:`gate_norm` is what ``models/ssm.py::mamba_sequence`` calls for
-tensors on the card that are neither DTensors nor a trace's fakes; it
-raises ``ValueError`` for dtypes or widths the kernels do not take.
-DTensors on the card run the model's plain lines, and
-:data:`gate_norm_plain_calls` counts them.  Where a gradient will be
-asked for, the forward saves its inputs and each row's r for the
-backward; else (a prefill under ``no_grad``) it runs alone and saves
-nothing.
+:func:`gate_norm` raises ``ValueError`` for dtypes or widths the kernels
+do not take, before any launch.  Where a gradient will be asked for, the
+forward saves its inputs and each row's r for the backward; else (a
+prefill under ``no_grad``) it runs alone and saves nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ssd_scan.grad import CallCount
 from .kernel import gate_norm_bwd_cuda, gate_norm_fwd_cuda
 
-__all__ = ["gate_norm", "gate_norm_plain_calls"]
-
-# calls of the mixer's epilogue on the card that took the plain lines
-gate_norm_plain_calls = CallCount()
+__all__ = ["gate_norm"]
 
 
 class _GateNorm(torch.autograd.Function):

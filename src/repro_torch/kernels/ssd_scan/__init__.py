@@ -3,7 +3,7 @@
 backward), the model's differentiable call on the card (``grad.py``),
 and the plain PyTorch versions (the sequential recurrence, the chunked
 passes and their gradient)."""
-from .grad import CallCount, pad_to_chunks, ssd_plain_calls, ssd_train
+from .grad import pad_to_chunks, ssd_train
 from .kernel import (SsdGradPlan, SsdPlan, ssd_bwd_scratch_floats,
                      ssd_bwd_smem_bytes, ssd_fwd_launch, ssd_grad_plan,
                      ssd_heads_per_cta, ssd_p_split, ssd_plan,
@@ -19,4 +19,4 @@ __all__ = ["ssd", "ssd_oracle", "ssd_ref", "ssd_chunked_ref",
            "ssd_scan_bwd_kernel", "ssd_bwd_smem_bytes",
            "ssd_bwd_scratch_floats", "ssd_grad_plan", "SsdGradPlan",
            "ssd_fwd_launch", "ssd_scan_bwd_cuda", "ssd_train",
-           "ssd_plain_calls", "CallCount", "pad_to_chunks"]
+           "pad_to_chunks"]

@@ -2,19 +2,15 @@
 kernel (``csrc/ssd_scan.cu``) and the backward kernel
 (``csrc/ssd_scan_bwd.cu``) in one ``torch.autograd.Function``.
 
-:func:`ssd_train` is what ``models/ssm.py::_ssd_local`` calls for
-tensors on the card with no incoming state (training, and a prefill
-from an empty cache); every other call takes the model's plain body,
-and :data:`ssd_plain_calls` counts those that were on the card.  Where
-a gradient will be asked for, the forward saves its scratch (the state
-entering each chunk and each chunk's decay) for the backward, which
-runs at the same chunk (:func:`~.kernel.ssd_grad_plan`); else the
-forward runs alone at its own plan.
+Where a gradient will be asked for, :func:`ssd_train`'s forward saves
+its scratch (the state entering each chunk and each chunk's decay) for
+the backward, which runs at the same chunk
+(:func:`~.kernel.ssd_grad_plan`); else the forward runs alone at its
+own plan.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
@@ -23,24 +19,7 @@ import torch.nn.functional as F
 from .kernel import (SsdGradPlan, _card, ssd_fwd_launch, ssd_grad_plan,
                      ssd_scan_bwd_cuda, ssd_scan_cuda)
 
-__all__ = ["ssd_train", "ssd_plain_calls", "CallCount", "pad_to_chunks"]
-
-
-class CallCount:
-    """A plain count of calls, beside the kernels' ``launches``."""
-
-    def __init__(self):
-        self.calls = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self.calls += 1
-
-
-# calls of the model's SSD on the card that took the plain body (an
-# incoming state: the forward kernel takes none)
-ssd_plain_calls = CallCount()
+__all__ = ["ssd_train", "pad_to_chunks"]
 
 
 class _SsdScan(torch.autograd.Function):

@@ -26,7 +26,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch._subclasses.fake_tensor import is_fake
 
 from ..configs.base import ModelConfig
 from ..dist.sharding import (batch_heads_placements, batch_only,
@@ -34,14 +33,14 @@ from ..dist.sharding import (batch_heads_placements, batch_only,
                               gather_grad_unless_divides,
                               gather_unless_divides, is_dtensor, local_call,
                               summed_placements)
-from ..kernels.ssd_scan.grad import CallCount
+from ..kernels import route
 from ..utils import leaves_with_paths, resolve_device
 
 __all__ = [
     "init_norm", "apply_norm", "init_attention", "apply_attention",
     "init_mlp", "apply_mlp", "init_moe", "apply_moe",
     "rope", "mrope", "make_positions", "softcap",
-    "attention_core", "attn_fused_calls", "attn_plain_calls", "Params",
+    "attention_core", "Params",
     "Leaf", "LMModule", "stack_spec", "layer_params", "torch_dtype",
     "masked_ce", "ce_sum", "embed_lookup",
 ]
@@ -366,11 +365,6 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
     return torch.where(ok, 0.0, -1e30)[:, None, :, :]
 
 
-# calls of attention_core on the card: through the fused kernel, and
-# through the float32 einsum
-attn_fused_calls = CallCount()
-attn_plain_calls = CallCount()
-
 _FUSED_MAX_HD = 256
 
 
@@ -379,7 +373,7 @@ def _fused_applies(q, k, v, causal, window, attn_cap, fused_ok):
     card (a trace's fakes hold no data), causal self-attention over plain
     positions with no cache, no window and no soft-cap, hd <= 256."""
     return (fused_ok and causal and not window and not attn_cap
-            and q.is_cuda and not is_fake(q)
+            and route.on_card(q)
             and q.dtype == k.dtype == v.dtype == torch.bfloat16
             and q.shape[1] == k.shape[1]
             and q.shape[-1] <= _FUSED_MAX_HD)
@@ -421,8 +415,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (self-attention with no cache).  Then a causal call on bf16 tensors
     on the card with no window or soft-cap and hd <= 256 runs as the
     fused kernel (:func:`_attention_fused`, memory linear in S, its
-    backward on the card too) and counts in :data:`attn_fused_calls`;
-    every other call on the card counts in :data:`attn_plain_calls`.
+    backward on the card too); every other call runs the einsum
+    (``kernels/route.py``'s ``attention`` route, which counts both).
     The training losses of the Zamba2 models give it; the dense and MoE
     decoders' do not, since the 40-step loss drop of qwen2-0.5b's
     full-width bf16 drive in ``chip_smoke.py`` (0.05 at least, 0.052 with
@@ -449,10 +443,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     if _fused_applies(q, k, v, causal, window, attn_cap, fused_ok):
-        attn_fused_calls.add()
-        return _attention_fused(q, k, v, scale)
-    if q.is_cuda and not is_fake(q):
-        attn_plain_calls.add()
+        out = _attention_fused(q, k, v, scale)
+        route.count("attention", kernel=True)
+        return out
+    if route.on_card(q):
+        route.count("attention", kernel=False)
     qf = (q * scale).float().reshape(B, Sq, K, G, hd)
     kf = k.float()
     vf = v.float()

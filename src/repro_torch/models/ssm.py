@@ -35,15 +35,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch._subclasses.fake_tensor import is_fake
 
 from ..configs.base import ModelConfig
 from ..core.obs.ranges import device_range
 from ..dist.sharding import (batch_heads_placements, batch_only,
                              constrain_residual, gather_grad_unless_divides,
                              gather_unless_divides, is_dtensor, local_call)
-from ..kernels.mamba_gate_norm import gate_norm, gate_norm_plain_calls
-from ..kernels.ssd_scan import ssd_plain_calls, ssd_train
+from ..kernels import route
+from ..kernels.mamba_gate_norm import gate_norm
+from ..kernels.ssd_scan import ssd_train
 from .blocks import Leaf, Params, _dense_init, apply_norm
 
 __all__ = ["init_mamba", "mamba_sequence", "mamba_step", "init_ssm_state"]
@@ -140,12 +140,14 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _ssd_local(x, dt, A, Bm, Cm, chunk, h0):
     """:func:`_ssd_chunked` on one device's tensors: the hand-written
     kernels (``ssd_train``: the forward and its backward) for tensors on
-    the card with no incoming state, else :func:`_ssd_plain`."""
-    on_card = x.is_cuda and not is_fake(x)   # a trace's fakes hold no data
-    if on_card and h0 is None:
-        return ssd_train(x, dt, A, Bm, Cm, chunk=chunk)
-    if on_card:
-        ssd_plain_calls.add()
+    the card with no incoming state, else :func:`_ssd_plain`
+    (``kernels/route.py``'s ``ssd`` route)."""
+    if route.on_card(x):
+        if h0 is None:
+            out = ssd_train(x, dt, A, Bm, Cm, chunk=chunk)
+            route.count("ssd", kernel=True)
+            return out
+        route.count("ssd", kernel=False)
     return _ssd_plain(x, dt, A, Bm, Cm, chunk, h0)
 
 
@@ -238,13 +240,15 @@ def _gate_norm(y, xh, z, D, scale, eps, dtype):
     out_proj input (B,S,H P) in ``dtype``: the D skip, the SiLU gate and
     the gated RMSNorm.  Tensors on the card take the hand-written kernels
     (``gate_norm``: forward and backward), which raise ``ValueError`` for
-    dtypes or widths they do not take; DTensors on the card take
-    :func:`_gate_norm_plain`, counted in ``gate_norm_plain_calls``; the
-    CPU and a trace's fakes take it uncounted."""
-    if y.is_cuda and not is_fake(y):       # a trace's fakes hold no data
+    dtypes or widths they do not take; DTensors on the card, the CPU and
+    a trace's fakes take :func:`_gate_norm_plain` (``kernels/route.py``'s
+    ``gate_norm`` route)."""
+    if route.on_card(y):
         if not is_dtensor(y):
-            return gate_norm(y, xh, z, D, scale, eps)
-        gate_norm_plain_calls.add()
+            out = gate_norm(y, xh, z, D, scale, eps)
+            route.count("gate_norm", kernel=True)
+            return out
+        route.count("gate_norm", kernel=False)
     return _gate_norm_plain(y, xh, z, D, scale, eps, dtype)
 
 

@@ -25,9 +25,11 @@ from repro_torch.kernels.build import CSRC_DIR, SOURCES
 from repro_torch.kernels.mamba_gate_norm import (
     gate_norm_aligned, gate_norm_bwd_kernel, gate_norm_bwd_ref,
     gate_norm_bwd_scratch_floats, gate_norm_kernel, gate_norm_operand,
-    gate_norm_plain_calls, gate_norm_ref)
+    gate_norm_ref)
 from repro_torch.kernels.mamba_gate_norm import grad as gn_grad
 from repro_torch.kernels.mamba_gate_norm import kernel as gn_kernel
+from repro_torch.kernels import route as routing
+from repro_torch.kernels.route import route_counts
 from repro_torch.models import blocks, ssm
 
 GRAD_NAMES = ("dy", "dxh", "dz", "dD", "dscale")
@@ -35,8 +37,11 @@ EPS = 1e-5
 
 
 def _counts():
-    return (gate_norm_kernel.launches, gate_norm_bwd_kernel.launches,
-            gate_norm_plain_calls.calls)
+    """The epilogue's route on the card: the forward's and the backward's
+    launches and the calls that took the plain lines."""
+    c = route_counts()
+    return (c["gate_norm.launches"], c["gate_norm_bwd.launches"],
+            c["gate_norm.plain"])
 
 
 def _inputs(Bz, S, H, P, seed=0, dtype=torch.float64, device="cpu",
@@ -144,11 +149,11 @@ def _old_lines(y, xh, z, D, scale, eps, dtype):
                          ids=["f32", "bf16"])
 def test_route_takes_the_plain_lines_on_the_cpu(dtype):
     x = _inputs(2, 5, 4, 16, seed=3, dtype=torch.float32, model_dtype=dtype)
-    before = _counts()
+    before = route_counts()
     want = _autograd(lambda *a: _old_lines(*a, EPS, dtype), *x)
     got = _autograd(lambda *a: ssm._gate_norm(*a, EPS, dtype), *x)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert _counts() == before
+    assert route_counts() == before
 
 
 def test_mamba_sequence_on_the_cpu_counts_nothing():
@@ -156,9 +161,6 @@ def test_mamba_sequence_on_the_cpu_counts_nothing():
     and the epilogue's plain bodies, no launch, no call on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.kernels.ssd_scan import (ssd_plain_calls,
-                                              ssd_scan_bwd_kernel,
-                                              ssd_scan_kernel)
     cfg = get_config("mamba2-780m").reduced()
     model = build_model(cfg, torch.device("cpu"),
                         generator=torch.Generator().manual_seed(0))
@@ -166,35 +168,11 @@ def test_mamba_sequence_on_the_cpu_counts_nothing():
     lp = {k: v.detach().float().requires_grad_() for k, v in lp.items()}
     u = torch.randn(2, 24, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1), requires_grad=True)
-    before = _counts() + (ssd_scan_kernel.launches,
-                          ssd_scan_bwd_kernel.launches, ssd_plain_calls.calls)
+    before = route_counts()
     out, _ = ssm.mamba_sequence(lp, cfg, u)
     grads = torch.autograd.grad(out.square().sum(), [u] + list(lp.values()))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
-    assert _counts() + (ssd_scan_kernel.launches,
-                        ssd_scan_bwd_kernel.launches,
-                        ssd_plain_calls.calls) == before
-
-
-def test_route_gives_a_traces_fake_card_tensors_the_plain_lines(
-        monkeypatch):
-    """A trace's fakes on the card's device hold no data to launch on:
-    they take the plain lines (a stub here) and count as no call."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    taken = []
-    monkeypatch.setattr(ssm, "_gate_norm_plain",
-                        lambda *args: taken.append(args) or "plain")
-    before = _counts()
-    with FakeTensorMode():
-        y = torch.empty(2, 5, 4, 16, device="cuda")
-        xh = torch.empty(2, 5, 4, 16, device="cuda", dtype=torch.bfloat16)
-        z = torch.empty(2, 5, 64, device="cuda", dtype=torch.bfloat16)
-        D = torch.empty(4, device="cuda")
-        scale = torch.empty(64, device="cuda", dtype=torch.bfloat16)
-        assert y.is_cuda
-        assert ssm._gate_norm(y, xh, z, D, scale, EPS,
-                              torch.bfloat16) == "plain"
-    assert len(taken) == 1 and _counts() == before
+    assert route_counts() == before
 
 
 def _card_fakes(dtype, P, H=4, D_dtype=torch.float32, scale_dtype=None):
@@ -212,18 +190,21 @@ def _card_fakes(dtype, P, H=4, D_dtype=torch.float32, scale_dtype=None):
     (torch.bfloat16, True, "plain")], ids=["bf16", "f32", "dtensor"])
 def test_route_on_card_tensors(monkeypatch, dtype, dtensor, route):
     """Tensors on the card (fakes passed off as real here) take the
-    kernels; DTensors on the card the plain lines, counted in
-    ``gate_norm_plain_calls``."""
+    kernels; DTensors on the card the plain lines; each call counts once,
+    in ``gate_norm.kernel`` or ``gate_norm.plain``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    monkeypatch.setattr(ssm, "is_fake", lambda t: False)
+    monkeypatch.setattr(routing, "on_card", lambda t: True)
     monkeypatch.setattr(ssm, "is_dtensor", lambda t: dtensor)
     monkeypatch.setattr(ssm, "gate_norm", lambda *args: "kernel")
     monkeypatch.setattr(ssm, "_gate_norm_plain", lambda *args: "plain")
-    before = gate_norm_plain_calls.calls
+    before = route_counts()
     with FakeTensorMode():
         x = _card_fakes(dtype, 16)
         assert ssm._gate_norm(*x, EPS, dtype) == route
-    assert gate_norm_plain_calls.calls - before == (route == "plain")
+    after = route_counts()
+    assert (after["gate_norm.kernel"] - before["gate_norm.kernel"],
+            after["gate_norm.plain"] - before["gate_norm.plain"]) == (
+        (route == "kernel"), (route == "plain"))
 
 
 # operands the kernels refuse, and the words of the ValueError: the
@@ -247,15 +228,15 @@ def test_route_raises_for_card_tensors_the_kernels_refuse(
     any launch, in place of running the plain lines on the card; nothing
     is counted."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    monkeypatch.setattr(ssm, "is_fake", lambda t: False)
+    monkeypatch.setattr(routing, "on_card", lambda t: True)
     monkeypatch.setattr(gn_kernel, "gate_norm_bwd_scratch_floats",
                         lambda H, P, dtype, dev: 0 if P % 8 else 1 << 20)
-    before = _counts()
+    before = route_counts()
     with FakeTensorMode():
         x = _card_fakes(**case)
         with pytest.raises(ValueError, match=re.escape(words)):
             ssm._gate_norm(*x, EPS, case["dtype"])
-    assert _counts() == before
+    assert route_counts() == before
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "no_input_requires_grad",

@@ -34,6 +34,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.kernels.flash_attention.kernel" in got["modules"]
     assert "repro_torch.kernels.ssd_scan.kernel" in got["modules"]
     assert "repro_torch.kernels.ssd_scan.grad" in got["modules"]
+    assert "repro_torch.kernels.route" in got["modules"]
     assert "repro_torch.apps.fleet.pipeline" in got["modules"]
     assert "repro_torch.core.xlatool" in got["modules"]
     # the registry and the memory side of COSMOS

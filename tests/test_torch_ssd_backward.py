@@ -19,10 +19,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.build import CSRC_DIR, SOURCES
+from repro_torch.kernels.route import route_counts
 from repro_torch.kernels.ssd_scan import (pad_to_chunks, ssd_bwd_smem_bytes,
                                           ssd_bwd_scratch_floats,
                                           ssd_chunked_bwd_ref, ssd_grad_plan,
-                                          ssd_plain_calls,
                                           ssd_scan_bwd_kernel,
                                           ssd_scan_cuda, ssd_scan_kernel)
 from repro_torch.kernels.ssd_scan import grad as ssd_grad
@@ -31,6 +31,13 @@ from repro_torch.models import ssm
 
 H100_SMS, H100_SMEM_OPTIN = 132, 232448
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _counts():
+    """The SSD's route on the card: the forward's and the backward's
+    launches and the calls that took the plain body."""
+    c = route_counts()
+    return c["ssd_scan.launches"], c["ssd_scan_bwd.launches"], c["ssd.plain"]
 
 
 def _inputs(Bz, S, H, P, N, seed=0, dtype=torch.float64, device="cpu"):
@@ -117,40 +124,14 @@ def test_route_takes_the_plain_body_on_the_cpu(with_h0):
     x, dt, A, B, C, _, h0 = _inputs(2, 40, 3, 4, 5, seed=2,
                                     dtype=torch.float32)
     h0 = h0 if with_h0 else None
-    counts = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-              ssd_plain_calls.calls)
+    before = route_counts()
     ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
     y, h = ssm._ssd_chunked(*ins, 16, h0)
     g = torch.autograd.grad((y.sum() + h.sum()), ins)
     want_y, want_h = ssm._ssd_plain(x, dt, A, B, C, 16, h0)
     assert torch.equal(y, want_y) and torch.equal(h, want_h)
     assert all(bool(torch.isfinite(t).all()) for t in g)
-    assert (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-            ssd_plain_calls.calls) == counts
-
-
-def test_route_gives_a_traces_fake_card_tensors_the_plain_body(
-        monkeypatch):
-    """The dry run traces the model over fake tensors on the card's
-    device: they hold no data to launch on, so they take the plain body
-    (here a stub: this host cannot run it on fake CUDA tensors) and count
-    as no call on the card."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    taken = []
-    monkeypatch.setattr(ssm, "_ssd_plain",
-                        lambda *args: taken.append(args) or "plain")
-    counts = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-              ssd_plain_calls.calls)
-    with FakeTensorMode():
-        x = torch.empty(2, 40, 3, 4, device="cuda")
-        dt = torch.empty(2, 40, 3, device="cuda")
-        A = torch.empty(3, device="cuda")
-        B, C = (torch.empty(2, 40, 5, device="cuda") for _ in range(2))
-        assert x.is_cuda
-        assert ssm._ssd_local(x, dt, A, B, C, 16, None) == "plain"
-    assert len(taken) == 1
-    assert (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-            ssd_plain_calls.calls) == counts
+    assert route_counts() == before
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "no_input_requires_grad",
@@ -341,14 +322,11 @@ def test_prefill_route_runs_the_forward_alone(case):
     Bz, S, H, P, N, chunk = case
     x, dt, A, B, C = _inputs(Bz, S, H, P, N, seed=5, dtype=torch.float32,
                              device=dev)[:5]
-    before = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-              ssd_plain_calls.calls)
+    before = _counts()
     with torch.no_grad():
         y, h = ssm._ssd_chunked(x, dt, A, B, C, chunk, None)
     torch.cuda.synchronize()
-    after = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-             ssd_plain_calls.calls)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 0)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0)
     q = min(chunk, S)
     padded = [t.contiguous() for t in pad_to_chunks(q, x, dt, B, C)]
     want_y, want_h = ssd_scan_cuda(padded[0], padded[1], A, padded[2],
@@ -382,13 +360,10 @@ def test_one_training_step_of_the_cell_launches_the_kernels():
     batch = {"tokens": rows[:, :-1].contiguous(),
              "targets": rows[:, 1:].contiguous(),
              "mask": torch.ones((20, 2048), dtype=torch.float32, device=dev)}
-    before = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-              ssd_plain_calls.calls)
+    before = _counts()
     params, opt, m = step(params, opt, batch)
     torch.cuda.synchronize()
-    after = (ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-             ssd_plain_calls.calls)
-    assert tuple(a - b for a, b in zip(after, before)) == (96, 48, 0)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (96, 48, 0)
     assert bool(torch.isfinite(m["loss"]))
     del model, params, opt, step
     torch.cuda.empty_cache()

@@ -33,6 +33,7 @@ import torch
 from perfbench.reference import zamba2_ref as Z
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.zamba2_published import Zamba2Config
+from repro_torch.kernels.route import route_counts
 from repro_torch.launch import train as launcher
 from repro_torch.models import Zamba2LM, build_model
 from repro_torch.models import blocks
@@ -163,15 +164,14 @@ def test_attention_core_default_scale_and_the_cpu_route():
     g = torch.Generator().manual_seed(2)
     q, k, v = (torch.randn(2, 16, 4, 8, generator=g) for _ in range(3))
     pos = blocks.make_positions(2, 16)
-    counts = (blocks.attn_fused_calls.calls, blocks.attn_plain_calls.calls)
+    before = route_counts()
     base = blocks.attention_core(q, k, v, pos, pos)
     same = blocks.attention_core(q, k, v, pos, pos, scale=1 / math.sqrt(8),
                                  fused_ok=True)
     other = blocks.attention_core(q, k, v, pos, pos, scale=0.5)
     assert torch.equal(base, same) and not torch.equal(base, other)
     # a CPU call is neither a fused call nor a plain call on the card
-    assert (blocks.attn_fused_calls.calls,
-            blocks.attn_plain_calls.calls) == counts
+    assert route_counts() == before
 
 
 def test_ranges_cover_the_shared_block_and_the_attention_core(tmp_path):
@@ -221,12 +221,14 @@ def test_fused_attention_matches_the_einsum_on_the_card(hd, heads, kv,
     outs = {}
     for fused in (True, False):
         ins = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
-        f0 = blocks.attn_fused_calls.calls
-        p0 = blocks.attn_plain_calls.calls
+        before = route_counts()
         y = blocks.attention_core(*ins, pos, pos, scale=scale,
                                   fused_ok=fused)
-        assert blocks.attn_fused_calls.calls - f0 == int(fused)
-        assert blocks.attn_plain_calls.calls - p0 == int(not fused)
+        after = route_counts()
+        assert after["attention.kernel"] - before["attention.kernel"] == int(
+            fused)
+        assert after["attention.plain"] - before["attention.plain"] == int(
+            not fused)
         grads = torch.autograd.grad(y, ins, dy.to(torch.bfloat16))
         outs[fused] = [y.float()] + [t.float() for t in grads]
     for name, got, want in zip(("y", "dq", "dk", "dv"), outs[True],
@@ -236,9 +238,6 @@ def test_fused_attention_matches_the_einsum_on_the_card(hd, heads, kv,
 
 @pytest.mark.card
 def test_a_bf16_step_of_the_smoke_form_takes_the_kernels_on_the_card():
-    from repro_torch.kernels.ssd_scan import (ssd_plain_calls,
-                                              ssd_scan_bwd_kernel,
-                                              ssd_scan_kernel)
     from repro_torch.optim import AdamWConfig, init_opt
     from repro_torch.train import TrainStepConfig, make_train_step
     dev = _card()
@@ -248,16 +247,15 @@ def test_a_bf16_step_of_the_smoke_form_takes_the_kernels_on_the_card():
     batch = {k: v.to(dev) for k, v in _batch(cfg, 2, 256).items()}
     step = make_train_step(model, AdamWConfig(), TrainStepConfig(
         remat="full", warmup_steps=1))
-    before = (blocks.attn_fused_calls.calls, blocks.attn_plain_calls.calls,
-              ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-              ssd_plain_calls.calls)
+    before = route_counts()
     params = model.params()
     _, _, m = step(params, init_opt(params), batch)
     assert math.isfinite(float(m["loss"]))
-    after = (blocks.attn_fused_calls.calls, blocks.attn_plain_calls.calls,
-             ssd_scan_kernel.launches, ssd_scan_bwd_kernel.launches,
-             ssd_plain_calls.calls)
-    fused, plain, fwd, bwd, ssd_plain = (a - b for a, b in zip(after, before))
+    after = route_counts()
+    fused, plain, fwd, bwd, ssd_plain = (
+        after[k] - before[k] for k in (
+            "attention.kernel", "attention.plain", "ssd_scan.launches",
+            "ssd_scan_bwd.launches", "ssd.plain"))
     sites = len(cfg.hybrid_layer_ids)
     # forward and recompute of every site
     assert (fused, plain) == (2 * sites, 0)
