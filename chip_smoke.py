@@ -141,9 +141,9 @@ which fails the run on any error:
   6. lm-serve — the LM serving path (``[lm-serve]``: configs ->
      ``SyntheticLM`` -> ``build_model`` -> ``ServeEngine``), whose models
      compute attention in plain PyTorch as the JAX package's do, and the
-     Mamba layers' prefill SSD as the forward kernel (the reduced and
-     the full-width drives each launch it, never the backward, and take
-     the plain SSD body on the card nowhere): every arch at ``.reduced()`` (float32, TF32 off) with the same
+     Mamba layers' prefill SSD, epilogue and conv as their forward
+     kernels (the reduced and the full-width drives each launch them,
+     never the backward, and take no plain version on the card): every arch at ``.reduced()`` (float32, TF32 off) with the same
      weights on the card and on the CPU — prefill and next-step logits
      within max|d| / max|ref| <= 1e-4, greedy ``generate`` tokens (8,
      whisper with frames) equal (from a step whose top-2 logits lie
@@ -173,7 +173,14 @@ which fails the run on any error:
      256 run as 4 x 64 in both) beside the plain body and its autograd,
      y and the final state and each of dx, ddt, dA, dB and dC within
      1e-4 x max(1, max|its ref|), the backward's bound at the f32 and
-     the 3xTF32 rate;
+     the 3xTF32 rate; and the mixer's causal conv kernel pair
+     (``csrc/mamba_causal_conv.cu``) at one layer of each training cell
+     (20 x 2048 x 3,328 and 8 x 4096 x 5,248, bf16, xbc a column slice
+     of in_proj's output, with a state) against the plain lines
+     (``_causal_conv``) in float32 and autograd of them, each element of
+     y, dx, dw, db and the state's gradient within 2^-8 of its own |ref|
+     and of the RMS of ref, timed beside its byte bound and the plain
+     lines in bf16;
   7. lm-train — the LM training path (``[lm-train]``: configs ->
      ``build_model`` -> ``init_opt`` -> ``make_train_step`` ->
      ``DataPipeline`` -> ``Watchdog`` -> ``AsyncCheckpointer``, through
@@ -197,10 +204,10 @@ which fails the run on any error:
      zamba2-2.7b at full width, 6 steps of 4 x 512 with microbatches 2, remat full and
      8-bit moments: finite, its float32 state at least 3.9x the 8-bit
      state's bytes.  The kernels' launches over the full-width drives
-     are printed (the SSD's and the epilogue's, forward and backward,
-     the only ones on this path); the reduced and the full-width drives
-     each launch both SSD kernels and both epilogue kernels and take
-     neither plain version on the card (``kernels/route.py``'s
+     are printed (the SSD's, the epilogue's and the conv's, forward and
+     backward, the only ones on this path); the reduced and the
+     full-width drives each launch both kernels of the SSD, of the
+     epilogue and of the conv and take no plain version on the card (``kernels/route.py``'s
      ``route_counts()``, read before and after each drive); the
      attention's fused and einsum calls on the card are printed for the
      full-width drives.  Last, Zamba2 in its
@@ -208,7 +215,7 @@ which fails the run on any error:
      depth and pattern at the smoke widths) in bfloat16, 3 steps of 2 x
      512 with remat full: every loss finite, its shared attention
      through the fused path alone (``attention.kernel`` > 0,
-     ``attention.plain`` 0) and its SSD and epilogue through both
+     ``attention.plain`` 0) and its SSD, epilogue and conv through both
      kernels each, with no plain call;
   8. lm-dryrun — the sharded dry run (``[lm-dryrun]``, in a child
      process, ``chip_smoke.py --lm-dryrun-child OUT``, since a process
@@ -2751,6 +2758,21 @@ LM_GATE_NORM_ROWS = (
 GATE_NORM_NAMES = ("out", "dy", "dxh", "dz", "dD", "dscale")
 GATE_NORM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 GATE_NORM_EPS = 1e-5
+# the Mamba2 mixer's depthwise causal conv (csrc/mamba_causal_conv.cu),
+# forward and backward, at one layer of each training cell in bf16 (xbc
+# the column slice of in_proj's output: rows of 6,448 and 10,448
+# features, xbc from 3,072 and 5,120; K 4; a state), beside the model's
+# plain lines and autograd of them; against the plain lines in float32
+# on the same inputs, each element of every output within one bf16
+# rounding (2^-8) of its own |ref| and of the RMS of ref
+LM_CONV_ROWS = (
+    dict(label="mamba2-780m conv", Bz=20, S=2048, C=3328, K=4,
+         cols=(6448, 3072)),
+    dict(label="zamba2-2.7b conv", Bz=8, S=4096, C=5248, K=4,
+         cols=(10448, 5120)),
+)
+CONV_NAMES = ("y", "dx", "dw", "db", "dstate")
+CONV_TOL = 2.0 ** -8
 
 
 def _lm_batch(cfg, B, S, seed, dev):
@@ -3111,7 +3133,75 @@ def _lm_kernel_times(dev):
               f"plain lines {t['plain_ms']:.5f} ms, autograd of them "
               f"{t['plain_bwd_ms']:.5f} ms; max|d| against the float32 "
               f"chain: {errs}", flush=True)
+    out["mamba_causal_conv"] = {}
+    for r in LM_CONV_ROWS:
+        t = out["mamba_causal_conv"][r["label"]] = _conv_row(dev, r)
+        errs = ", ".join(f"{n} {t['rel_err'][n]:.3g}" for n in CONV_NAMES)
+        print(f"[lm-serve] mamba_causal_conv at {r['label']}: forward "
+              f"{t['ms']:.5f} ms (bound {t['bound_ms']:.6f}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}%), backward "
+              f"{t['bwd_ms']:.5f} ms (bound {t['bwd_bound_ms']:.6f}, "
+              f"{100 * t['bwd_bound_ms'] / t['bwd_ms']:.1f}%); the model's "
+              f"plain lines {t['plain_ms']:.5f} ms, autograd of them "
+              f"{t['plain_bwd_ms']:.5f} ms; worst |d| / (|ref| + rms) "
+              f"against the float32 lines (tol {CONV_TOL:.3g}): {errs}",
+              flush=True)
     return out
+
+
+def _conv_row(dev, r):
+    """The conv's forward and backward kernels at the row ``r`` (one
+    layer of a training cell): each output (the state's gradient too)
+    against the model's plain lines (``_causal_conv``) in float32 and
+    autograd of them on the same inputs, each element within
+    ``CONV_TOL`` of its own |ref| and of the RMS of ref; times beside
+    their bounds (bytes: x, the state, w and b read and y written once
+    forward; x, dy, the state, w and b read and dx, dw and db written
+    once backward, as training runs it, with no state gradient) and
+    beside the plain lines in bf16 and autograd of them."""
+    import torch
+    from repro_torch.kernels.causal_conv import (causal_conv_bwd_cuda,
+                                                 causal_conv_fwd_cuda)
+    from repro_torch.models.ssm import _causal_conv
+    Bz, S, C, K = (r[k] for k in ("Bz", "S", "C", "K"))
+    wide, lo = r["cols"]
+    g = torch.Generator(dev).manual_seed(26)
+
+    def draw(shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(
+            torch.bfloat16)
+    xbc = draw((Bz, S, wide))[..., lo:lo + C]
+    w, b, st, dy = draw((K, C), 0.4), draw((C,), 0.3), draw((Bz, K - 1, C)), \
+        draw((Bz, S, C))
+    got = (causal_conv_fwd_cuda(xbc, w, b, st),) + causal_conv_bwd_cuda(
+        xbc, w, b, st, dy, state_grad=True)
+    leaves = [t.detach().float().requires_grad_() for t in (xbc, w, b, st)]
+    y32, _ = _causal_conv(*leaves)
+    want = (y32,) + torch.autograd.grad(y32, leaves, dy.float())
+    rels = {n: _elementwise_err(f"{r['label']} {n}", gt, wt.detach(),
+                                CONV_TOL)
+            for n, gt, wt in zip(CONV_NAMES, got, want)}
+    del got, want, leaves, y32
+    n_el, small = Bz * S * C, Bz * (K - 1) * C + K * C + C
+    fwd_bytes = 2 * (2 * n_el + small)
+    bwd_bytes = 2 * (3 * n_el + small + K * C + C)
+    leaves = [t.detach().requires_grad_() for t in (xbc, w, b)]
+    plain, _ = _causal_conv(*leaves, st)
+    row = {"ms": _time_ms(dev, lambda: causal_conv_fwd_cuda(xbc, w, b, st)),
+           "bwd_ms": _time_ms(dev, lambda: causal_conv_bwd_cuda(
+               xbc, w, b, st, dy)),
+           "plain_ms": _time_ms(dev, lambda: _causal_conv(xbc, w, b, st)),
+           "plain_bwd_ms": _time_ms(dev, lambda: torch.autograd.grad(
+               plain, leaves, dy, retain_graph=True),
+               launches=TIME_LAUNCHES_LONG, reps=2),
+           "library_ms": None,
+           "bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "bwd_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+           "rel_err": rels, "tol": CONV_TOL}
+    del plain, leaves, xbc, w, b, st, dy
+    torch.cuda.empty_cache()
+    return row
 
 
 def _gate_norm_inputs(dev, Bz, S, H, P, N, seed):
@@ -3298,12 +3388,13 @@ def _route_growth(before):
 
 
 def _require_routes(tag, drive, grew, backward):
-    """The Mamba layers' chunked SSD and their mixers' epilogue took the
-    kernels in ``drive`` (``grew``, from ``_route_growth``): each
-    forward launched, each backward launched iff ``backward``, and no
-    call on the card took a plain version."""
+    """The Mamba layers' chunked SSD and their mixers' epilogue and conv
+    took the kernels in ``drive`` (``grew``, from ``_route_growth``):
+    each forward launched, each backward launched iff ``backward``, and
+    no call on the card took a plain version."""
     print(f"[{tag}] {drive}: routes on the card {grew}", flush=True)
-    for route, fwd in (("ssd", "ssd_scan"), ("gate_norm", "gate_norm")):
+    for route, fwd in (("ssd", "ssd_scan"), ("gate_norm", "gate_norm"),
+                       ("conv", "causal_conv")):
         _require(grew[f"{fwd}.launches"] > 0 and grew[f"{route}.plain"] == 0
                  and (grew[f"{fwd}_bwd.launches"] > 0) == backward,
                  f"[{tag}] {drive}: the model's {route} did not take the "
@@ -3316,8 +3407,8 @@ def phase_lm_serve(dev):
     card against the CPU, the served models at full width, and the two
     kernels at their shapes.  Frees each model before the next.  Over the
     reduced and over the full-width drives the Mamba layers' prefills
-    launch the SSD's and the epilogue's forward kernels, never their
-    backward, and take neither plain version."""
+    launch the SSD's, the epilogue's and the conv's forward kernels,
+    never their backward, and take no plain version."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -3762,8 +3853,8 @@ def _lm_train_q8(dev):
 def _lm_train_published(dev):
     """(d): Zamba2 in its published form at the smoke widths, bf16, a few
     steps of ``make_train_step`` with remat full: the shared attention
-    through the fused path alone, the SSD and the epilogue through both
-    of their kernels."""
+    through the fused path alone, the SSD, the epilogue and the conv
+    through both of their kernels."""
     import dataclasses
     import gc
 
@@ -3814,11 +3905,14 @@ def phase_lm_train(dev, table):
     card against the CPU; qwen2-0.5b through the launcher at full width,
     crashed and resumed; zamba2-2.7b at full width with the three knobs;
     the published Zamba2 at the smoke widths in bf16.  Every kernel's
-    launches over the full-width drives are printed: the SSD's and the
-    epilogue's forward and backward kernels lie on this path (the Mamba
-    layers' mixer), no other kernel does; the reduced and the full-width
-    drives each launch all four and take neither plain version.  The
+    launches over the full-width drives are printed: the SSD's, the
+    epilogue's and the conv's forward and backward kernels lie on this
+    path (the Mamba layers' mixer), no other kernel does; the reduced and
+    the full-width drives each launch all six and take no plain
+    version.  The
     published form's attention takes the fused path alone."""
+    from repro_torch.kernels.causal_conv import (causal_conv_bwd_kernel,
+                                                 causal_conv_kernel)
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.mamba_gate_norm import (gate_norm_bwd_kernel,
                                                      gate_norm_kernel)
@@ -3830,7 +3924,9 @@ def phase_lm_train(dev, table):
                     ssd_scan=ssd_scan_kernel,
                     ssd_scan_bwd=ssd_scan_bwd_kernel,
                     gate_norm=gate_norm_kernel,
-                    gate_norm_bwd=gate_norm_bwd_kernel)
+                    gate_norm_bwd=gate_norm_bwd_kernel,
+                    causal_conv=causal_conv_kernel,
+                    causal_conv_bwd=causal_conv_bwd_kernel)
     t0 = time.perf_counter()
     before = route_counts()
     out = {"reduced": _lm_train_reduced(dev)}
@@ -4389,6 +4485,18 @@ def main(argv=None) -> int:
             "ms", "bound_ms", "bwd_ms", "bwd_bound_ms", "plain_ms",
             "plain_bwd_ms", "bytes", "bwd_bytes", "max_abs_err", "rel_err",
             "tol")}
+            for label, t in rows.items()}})
+    # the Mamba2 mixer's causal conv, forward and backward, at both
+    # cells' layers
+    rows = lm_serve["kernels"]["mamba_causal_conv"]
+    kernels.append({
+        "name": "mamba_causal_conv", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_causal_conv.cu",
+        "replaces": None, "lm_serve_route": lm_serve["routes"],
+        "lm_train_route": lm_train["routes"],
+        "shapes": {label: {key: t[key] for key in (
+            "ms", "bound_ms", "bwd_ms", "bwd_bound_ms", "plain_ms",
+            "plain_bwd_ms", "bytes", "bwd_bytes", "rel_err", "tol")}
             for label, t in rows.items()}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

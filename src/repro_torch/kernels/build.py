@@ -24,7 +24,8 @@ import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "CudaKernel",
            "build_all", "load_library", "require_cuda_f32",
-           "require_cuda_tensor", "smem_optin", "current_stream"]
+           "require_cuda_tensor", "aligned_16", "smem_optin",
+           "current_stream"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -35,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every library under csrc/, one per kernel package
 SOURCES = ("wami_debayer", "wami_grayscale", "wami_gradient", "wami_steep",
            "wami_warp", "wami_change_det", "flash_attention", "ssd_scan",
-           "ssd_scan_bwd", "mamba_gate_norm")
+           "ssd_scan_bwd", "mamba_gate_norm", "mamba_causal_conv")
 _HEADERS = ("kernel_export.cuh", "wami_common.cuh", "tf32_mma.cuh",
             "ssd_common.cuh")
 
@@ -122,6 +123,12 @@ def require_cuda_tensor(name: str, t, shape: Sequence[int],
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def aligned_16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it starts on the 16-byte grid (a kernel reads it in
+    16-byte words), else a copy of it, which does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def smem_optin(device) -> int:

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..build import (CudaKernel, current_stream, load_library,
+from ..build import (CudaKernel, aligned_16, current_stream, load_library,
                      require_cuda_tensor)
 
 __all__ = ["gate_norm_kernel", "gate_norm_bwd_kernel",
@@ -89,10 +89,8 @@ def gate_norm_operand(t: torch.Tensor, inner: int
     return t, t.stride(0), t.stride(1)
 
 
-def gate_norm_aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` where it starts on the 16-byte grid (the kernels read it in
-    16-byte words), else a copy of it, which does."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+# scale and dout, which the kernels read in 16-byte words from their start
+gate_norm_aligned = aligned_16
 
 
 def _check(y, xh, z, D, scale) -> Tuple[int, int, int, int, int]:

@@ -1,7 +1,7 @@
 """Where the LM path's hand-written kernels run, and the count of each
 choice.
 
-Three decisions send a model call either to a kernel or to its plain
+Four decisions send a model call either to a kernel or to its plain
 PyTorch version.  A call decides only where its tensors hold data on the
 card (:func:`on_card`); on the CPU, and over a trace's fake tensors (the
 dry run's), every call takes the plain version and counts nothing.  On
@@ -19,6 +19,13 @@ the card each call counts once, in ``<route>.kernel`` or in
     ``ValueError`` before any launch for dtypes and widths they do not
     take, and the call counts nothing; a DTensor takes the plain lines
     ``_gate_norm_plain``.
+  * ``conv`` (``models/ssm.py::_conv``, the mixer's depthwise causal conv
+    with its bias and SiLU): a call that is not a DTensor takes the
+    kernels (``kernels/causal_conv/grad.py::causal_conv``), which raise
+    ``ValueError`` before any launch for dtypes and taps they do not
+    take, and the call counts nothing; a DTensor takes the plain lines
+    ``_causal_conv``.  Decode (``mamba_step``'s rolling window) is not
+    routed.
   * ``attention`` (``models/blocks.py::attention_core``): a call its
     caller allows (``fused_ok``: plain positions, no cache), causal,
     bf16, with no window or soft-cap and a head dim of at most 256 takes
@@ -37,6 +44,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..core.obs.metrics import MetricsRegistry
+from .causal_conv.kernel import causal_conv_bwd_kernel, causal_conv_kernel
 from .mamba_gate_norm.kernel import gate_norm_bwd_kernel, gate_norm_kernel
 from .ssd_scan.kernel import ssd_scan_bwd_kernel, ssd_scan_kernel
 
@@ -46,12 +54,14 @@ __all__ = ["on_card", "count", "route_counts", "ROUTES"]
 ROUTES = MetricsRegistry()
 _COUNTERS = {(route, kernel): ROUTES.counter(
                  f"{route}.{'kernel' if kernel else 'plain'}")
-             for route in ("ssd", "gate_norm", "attention")
+             for route in ("ssd", "gate_norm", "conv", "attention")
              for kernel in (True, False)}
 # the kernels the routes launch
 _KERNELS = {"ssd_scan": ssd_scan_kernel, "ssd_scan_bwd": ssd_scan_bwd_kernel,
             "gate_norm": gate_norm_kernel,
-            "gate_norm_bwd": gate_norm_bwd_kernel}
+            "gate_norm_bwd": gate_norm_bwd_kernel,
+            "causal_conv": causal_conv_kernel,
+            "causal_conv_bwd": causal_conv_bwd_kernel}
 
 
 def on_card(t: torch.Tensor) -> bool:

@@ -16,11 +16,17 @@ The mixer's epilogue after the SSD (the D skip, the SiLU gate and the
 gated RMSNorm, :func:`_gate_norm`) runs on the card as one pair of
 hand-written kernels, forward and backward (``csrc/mamba_gate_norm.cu``,
 through ``repro_torch.kernels.mamba_gate_norm.gate_norm``); on the CPU,
-and on DTensors, as the plain lines :func:`_gate_norm_plain`.
+and on DTensors, as the plain lines :func:`_gate_norm_plain`.  So does
+the depthwise causal conv before the SSD, with its bias and SiLU
+(:func:`_conv`: ``csrc/mamba_causal_conv.cu`` through
+``repro_torch.kernels.causal_conv.causal_conv``; the plain lines
+:func:`_causal_conv`).  Decode's rolling window (:func:`mamba_step`)
+stays plain.
 
-While a ``torch.profiler`` records, the mixer (:func:`mamba_sequence`)
-and its chunked SSD (the local body of :func:`_ssd_chunked`) run inside
-the ranges ``mamba.mixer`` and ``mamba.ssd``
+While a ``torch.profiler`` records, the mixer (:func:`mamba_sequence`),
+its conv (:func:`_conv`) and its chunked SSD (the local body of
+:func:`_ssd_chunked`) run inside the ranges ``mamba.mixer``,
+``mamba.conv`` and ``mamba.ssd``
 (:func:`repro_torch.core.obs.device_range`).  Each covers its forward,
 its recompute under remat and, through autograd hooks, its backward,
 which runs on autograd's thread; nothing else changes.
@@ -42,6 +48,7 @@ from ..dist.sharding import (batch_heads_placements, batch_only,
                              constrain_residual, gather_grad_unless_divides,
                              gather_unless_divides, is_dtensor, local_call)
 from ..kernels import route
+from ..kernels.causal_conv import causal_conv
 from ..kernels.mamba_gate_norm import gate_norm
 from ..kernels.ssd_scan import ssd_train
 from .blocks import Leaf, Params, _dense_init, apply_norm
@@ -88,6 +95,23 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = sum(ext[:, i:i + S, :] * w[i] for i in range(K))
     new_state = ext[:, -(K - 1):, :] if K > 1 else state
     return F.silu(y + b), new_state
+
+
+@device_range("mamba.conv")
+def _conv(xbc, w, b, state):
+    """The mixer's depthwise causal conv with its bias and SiLU, as
+    :func:`_causal_conv`.  Tensors on the card take the hand-written
+    kernels (``causal_conv``: forward and backward), which raise
+    ``ValueError`` for dtypes or taps they do not take; DTensors on the
+    card, the CPU and a trace's fakes take :func:`_causal_conv`
+    (``kernels/route.py``'s ``conv`` route)."""
+    if route.on_card(xbc):
+        if not is_dtensor(xbc):
+            out = causal_conv(xbc, w, b, state)
+            route.count("conv", kernel=True)
+            return out
+        route.count("conv", kernel=False)
+    return _causal_conv(xbc, w, b, state)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -223,7 +247,7 @@ def mamba_sequence(p: Params, cfg: ModelConfig, u: torch.Tensor,
     proj = batch_only(u) @ p["in_proj"]
     z, xbc, dt = _split_proj(cfg, proj)
     conv_state = state["conv"] if state else None
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc, conv_state = _conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
     A = -torch.exp(p["A_log"])                                    # (H,)

@@ -1,8 +1,8 @@
 """Profiler ranges inside the port's Mamba2 training step
 (``repro_torch.core.obs.device_range``): ``mamba.mixer`` around
-``mamba_sequence``, ``mamba.ssd`` around the chunked SSD's local body
-and ``remat.recompute`` around remat's re-run of a layer, each over
-every phase it runs in.
+``mamba_sequence``, ``mamba.conv`` around its causal conv, ``mamba.ssd``
+around the chunked SSD's local body and ``remat.recompute`` around
+remat's re-run of a layer, each over every phase it runs in.
 
 On the ``mamba2-780m`` smoke configuration, batch 2 x 64 tokens, one
 step of ``make_train_step`` under ``torch.profiler`` for each remat
@@ -74,14 +74,16 @@ def test_ranges_cover_forward_recompute_and_backward(remat, tmp_path,
                         lambda *a: hooked.append(1) or close(*a))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(params, init_opt(params), _batch())
-    # hooks in the forward alone, never in a recompute
-    assert len(hooked) == 2 * L
+    # hooks in the forward alone (the mixer's, the conv's, the SSD's),
+    # never in a recompute
+    assert len(hooked) == 3 * L
     events = _trace(prof, tmp_path)
     ranges = _ranges(events)
     count = Counter(e["name"] for e in ranges)
     phases = 2 if remat == "none" else 3
     assert count["mamba.mixer"] == phases * L
     assert count["mamba.ssd"] == phases * L
+    assert count["mamba.conv"] == phases * L
     assert count["remat.recompute"] == (0 if remat == "none" else L)
     assert all(e["dur"] > 0 for e in ranges)
     # a layer's backward range closes before the next layer's opens: the

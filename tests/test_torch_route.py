@@ -1,7 +1,8 @@
 """Where the LM path's calls run, kernel or plain version
-(``repro_torch.kernels.route``), for each of its three routes: the SSD
+(``repro_torch.kernels.route``), for each of its four routes: the SSD
 (``models/ssm.py::_ssd_local``), the mixer's epilogue
-(``models/ssm.py::_gate_norm``) and attention
+(``models/ssm.py::_gate_norm``), the mixer's causal conv
+(``models/ssm.py::_conv``) and attention
 (``models/blocks.py::attention_core``).  On the CPU and over a trace's
 fake tensors every call takes the plain version and counts nothing; a
 call on the card (fakes passed off as real here) counts once, in the
@@ -68,6 +69,16 @@ def _gate_norm_args(device):
             EPS, bf16)
 
 
+def _conv_args(device):
+    g = torch.Generator().manual_seed(3) if device == "cpu" else None
+
+    def draw(*shape):
+        if g is None:
+            return torch.empty(*shape, device=device, dtype=torch.bfloat16)
+        return torch.randn(*shape, generator=g).to(torch.bfloat16)
+    return draw(2, 9, 24), draw(4, 24), draw(24), draw(2, 3, 24)
+
+
 def _attention_args(device):
     g = torch.Generator().manual_seed(2) if device == "cpu" else None
     if g is None:
@@ -89,6 +100,8 @@ ROUTES = {
             (ssm, "_ssd_plain")),
     "gate_norm": (ssm._gate_norm, _gate_norm_args, (ssm, "gate_norm"),
                   (ssm, "_gate_norm_plain")),
+    "conv": (ssm._conv, _conv_args, (ssm, "causal_conv"),
+             (ssm, "_causal_conv")),
     "attention": (lambda *a: blocks.attention_core(*a, fused_ok=True),
                   _attention_args, (blocks, "_attention_fused"),
                   (blocks, "_mask_bias")),
@@ -128,25 +141,34 @@ def test_route_on_the_cpu_takes_the_plain_version_and_counts_nothing(name):
     assert route_counts() == before
 
 
-@pytest.mark.parametrize("name,h0,fused_ok,want", [
-    ("ssd", False, None, "kernel"), ("ssd", True, None, "plain"),
-    ("attention", None, True, "kernel"), ("attention", None, False, "plain"),
-], ids=["ssd-no_h0", "ssd-h0", "attention-fused_ok", "attention-not_fused"])
+@pytest.mark.parametrize("name,case,want", [
+    ("ssd", dict(h0=False), "kernel"), ("ssd", dict(h0=True), "plain"),
+    ("attention", dict(fused_ok=True), "kernel"),
+    ("attention", dict(fused_ok=False), "plain"),
+    ("conv", dict(dtensor=False), "kernel"),
+    ("conv", dict(dtensor=True), "plain"),
+], ids=["ssd-no_h0", "ssd-h0", "attention-fused_ok", "attention-not_fused",
+        "conv-tensor", "conv-dtensor"])
 def test_a_call_on_the_card_counts_once_in_the_version_it_took(
-        monkeypatch, name, h0, fused_ok, want):
+        monkeypatch, name, case, want):
     """Fakes passed off as holding data on the card: the SSD takes the
     kernels without an incoming state and the plain body with one;
-    attention takes the fused kernel where its caller allows it.  The
-    epilogue's cases are in ``tests/test_torch_gate_norm.py``."""
+    attention takes the fused kernel where its caller allows it; the conv
+    takes its kernels unless it is a DTensor.  The epilogue's cases are
+    in ``tests/test_torch_gate_norm.py``."""
     monkeypatch.setattr(route, "on_card", lambda t: True)
     _stub_versions(monkeypatch, name)
+    if name == "conv":
+        monkeypatch.setattr(ssm, "is_dtensor", lambda t: case["dtensor"])
     before = route_counts()
     with FakeTensorMode():
         if name == "ssd":
-            got = _taken(ssm._ssd_local, *_ssd_args("cuda", h0=h0))
+            got = _taken(ssm._ssd_local, *_ssd_args("cuda", h0=case["h0"]))
+        elif name == "conv":
+            got = _taken(ssm._conv, *_conv_args("cuda"))
         else:
             got = _taken(blocks.attention_core, *_attention_args("cuda"),
-                         fused_ok=fused_ok)
+                         fused_ok=case["fused_ok"])
     assert got == want
     after = route_counts()
     grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -156,8 +178,9 @@ def test_a_call_on_the_card_counts_once_in_the_version_it_took(
 def test_route_counts_holds_every_counter_and_launch():
     counts = route_counts()
     assert set(counts) == {
-        f"{r}.{v}" for r in ("ssd", "gate_norm", "attention")
+        f"{r}.{v}" for r in ("ssd", "gate_norm", "conv", "attention")
         for v in ("kernel", "plain")} | {
         f"{k}.launches" for k in ("ssd_scan", "ssd_scan_bwd", "gate_norm",
-                                  "gate_norm_bwd")}
+                                  "gate_norm_bwd", "causal_conv",
+                                  "causal_conv_bwd")}
     assert all(isinstance(n, int) and n >= 0 for n in counts.values())
